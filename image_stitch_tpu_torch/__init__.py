@@ -1,0 +1,28 @@
+"""image_stitch_tpu_torch — the image_stitch_tpu pipeline on PyTorch and CUDA.
+
+A port of ``image_stitch_tpu`` (JAX on a TPU) to torch on an NVIDIA H100,
+which lives beside it; the JAX package is the reference the port's tests
+hold it to, byte for byte. This slice ports grid or positioned input to
+JPEG output: host decode, layout and band assembly are the JAX package's
+framework-free modules, imported as they are; quantize, entropy symbols,
+the phase-1 pack and the merge run in torch on ``device``, the last two as
+hand-written CUDA kernels (``csrc/``, built with nvcc for sm_90a on first
+use). The package never imports jax.
+"""
+
+from __future__ import annotations
+
+from image_stitch_tpu.errors import StitchError
+
+from .api import concat_streaming, concat_to_buffer, concat_to_file
+from .core import TorchStreamingConcatenator
+from .ops.jpeg_entropy_device import EncodeCounters
+
+__all__ = [
+    "EncodeCounters",
+    "StitchError",
+    "TorchStreamingConcatenator",
+    "concat_streaming",
+    "concat_to_buffer",
+    "concat_to_file",
+]

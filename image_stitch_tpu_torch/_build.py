@@ -1,0 +1,123 @@
+"""Build the hand-written kernels from ``csrc/`` on first use.
+
+Counterpart of ``image_stitch_tpu/native/__init__.py::_build_library``: the
+library is compiled once into a directory keyed by a hash of its sources
+and the command line, and loaded with ``ctypes``.
+
+- :func:`load_cuda_kernels` runs ``nvcc`` for ``sm_90a`` over
+  ``csrc/*.cu`` into ``build/torch_kernels/<sha>/`` under the checkout. It
+  raises :class:`KernelBuildError`, with the compiler's output, when
+  ``nvcc`` is missing or the build fails; nothing falls back.
+- :func:`load_host_shim` runs ``g++`` over ``csrc/host_shim.cpp``, a
+  serial CPU build of the same per-block bodies. Only the tests load it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_ROOT = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "build",
+    "torch_kernels",
+)
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """The kernels could not be compiled or loaded."""
+
+
+def _find_nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise KernelBuildError(
+        "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, $PATH and "
+        "/usr/local/cuda/bin): the CUDA kernels cannot be built"
+    )
+
+
+def _build(name: str, compiler: str, flags: list[str], sources: list[str]) -> str:
+    """Compile ``sources`` into ``<BUILD_ROOT>/<sha>/lib<name>.so`` unless it
+    is there already; return its path."""
+    h = hashlib.sha256()
+    h.update(" ".join([os.path.basename(compiler)] + flags).encode())
+    for path in sorted(glob.glob(os.path.join(_CSRC, "*"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    out_dir = os.path.join(BUILD_ROOT, f"{name}-{h.hexdigest()[:16]}")
+    lib_path = os.path.join(out_dir, f"lib{name}.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    # Build under a temporary name and rename: concurrent builds (test
+    # workers) each produce a whole file, and the rename is atomic.
+    fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [compiler, *flags, "-I", _CSRC, "-o", tmp_path, *sources]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        os.unlink(tmp_path)
+        raise KernelBuildError(f"{' '.join(cmd)} could not run: {e}") from e
+    if proc.returncode != 0:
+        os.unlink(tmp_path)
+        raise KernelBuildError(
+            f"{' '.join(cmd)} failed with code {proc.returncode}:\n"
+            f"{proc.stderr}{proc.stdout}"
+        )
+    os.replace(tmp_path, lib_path)
+    return lib_path
+
+
+def load_cuda_kernels() -> ctypes.CDLL:
+    """Build (once) and load the CUDA kernels for sm_90a."""
+    if "cuda" not in _loaded:
+        sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+        lib = ctypes.CDLL(_build("torch_kernels", _find_nvcc(), NVCC_FLAGS, sources))
+        lib.pack_blocks_aligned_launch.restype = _I
+        lib.pack_blocks_aligned_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+        lib.merge_or_launch.restype = _I
+        lib.merge_or_launch.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+        _loaded["cuda"] = lib
+    return _loaded["cuda"]
+
+
+def load_host_shim() -> ctypes.CDLL:
+    """Build (once) and load the serial CPU build of the kernel bodies.
+    Test-only: the encoder never calls it."""
+    if "host" not in _loaded:
+        compiler = shutil.which("g++")
+        if compiler is None:
+            raise KernelBuildError("g++ not found: the host shim cannot be built")
+        src = [os.path.join(_CSRC, "host_shim.cpp")]
+        lib = ctypes.CDLL(_build("torch_kernels_host", compiler, GXX_FLAGS, src))
+        lib.pack_blocks_aligned_host.restype = None
+        lib.pack_blocks_aligned_host.argtypes = [_P, _P, _P, _P, _I, _I, _I]
+        lib.merge_or_host.restype = None
+        lib.merge_or_host.argtypes = [_P, _P, _P, _I, _I, _I]
+        _loaded["host"] = lib
+    return _loaded["host"]
