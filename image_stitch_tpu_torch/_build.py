@@ -5,7 +5,8 @@ library is compiled once into a directory keyed by a hash of its sources
 and the command line, and loaded with ``ctypes``.
 
 - :func:`load_cuda_kernels` runs ``nvcc`` for ``sm_90a`` over
-  ``csrc/*.cu`` into ``build/torch_kernels/<sha>/`` under the checkout. It
+  ``csrc/*.cu`` into ``build/torch_kernels/<sha>/`` under the checkout:
+  one ``nvcc -c`` per source, all started together, then one link. It
   raises :class:`KernelBuildError`, with the compiler's output, when
   ``nvcc`` is missing or the build fails; nothing falls back.
 - :func:`load_host_shim` runs ``g++`` over ``csrc/host_shim.cpp``, a
@@ -31,12 +32,13 @@ BUILD_ROOT = os.path.join(
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
-GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
+GXX_FLAGS = ["-std=c++17", "-O2", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U32 = ctypes.c_uint32
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -62,7 +64,8 @@ def _find_nvcc() -> str:
 
 def _build(name: str, compiler: str, flags: list[str], sources: list[str]) -> str:
     """Compile ``sources`` into ``<BUILD_ROOT>/<sha>/lib<name>.so`` unless it
-    is there already; return its path."""
+    is there already; return its path. Each source compiles to an object in
+    its own process, all started together; one more call links them."""
     h = hashlib.sha256()
     h.update(" ".join([os.path.basename(compiler)] + flags).encode())
     for path in sorted(glob.glob(os.path.join(_CSRC, "*"))):
@@ -73,24 +76,46 @@ def _build(name: str, compiler: str, flags: list[str], sources: list[str]) -> st
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    # Build under a temporary name and rename: concurrent builds (test
-    # workers) each produce a whole file, and the rename is atomic.
-    fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [compiler, *flags, "-I", _CSRC, "-o", tmp_path, *sources]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        os.unlink(tmp_path)
-        raise KernelBuildError(f"{' '.join(cmd)} could not run: {e}") from e
-    if proc.returncode != 0:
-        os.unlink(tmp_path)
-        raise KernelBuildError(
-            f"{' '.join(cmd)} failed with code {proc.returncode}:\n"
-            f"{proc.stderr}{proc.stdout}"
-        )
-    os.replace(tmp_path, lib_path)
+    # Build in a private temporary directory and rename the library into
+    # place: concurrent builds (test workers) each produce a whole file, and
+    # the rename is atomic.
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objects = [os.path.join(tmp, f"{i}.o") for i in range(len(sources))]
+        cmds = [[compiler, *flags, "-I", _CSRC, "-c", "-o", obj, src]
+                for obj, src in zip(objects, sources)]
+        _run_all(cmds)
+        tmp_lib = os.path.join(tmp, "lib.so")
+        _run_all([[compiler, *flags, "-shared", "-o", tmp_lib, *objects]])
+        os.replace(tmp_lib, lib_path)
     return lib_path
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with every failure's output.
+    Every process started is waited for, or killed, before this returns."""
+    procs: list[subprocess.Popen] = []
+    for cmd in cmds:
+        try:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        except OSError as e:
+            for proc in procs:
+                proc.kill()
+                proc.communicate()
+            raise KernelBuildError(f"{' '.join(cmd)} could not run: {e}") from e
+    failures = []
+    for cmd, proc in zip(cmds, procs):
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            failures.append(f"{' '.join(cmd)} timed out:\n{err}{out}")
+            continue
+        if proc.returncode != 0:
+            failures.append(f"{' '.join(cmd)} failed with code {proc.returncode}:\n{err}{out}")
+    if failures:
+        raise KernelBuildError("\n".join(failures))
 
 
 def load_cuda_kernels() -> ctypes.CDLL:
@@ -102,6 +127,10 @@ def load_cuda_kernels() -> ctypes.CDLL:
         lib.pack_blocks_aligned_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
         lib.merge_or_launch.restype = _I
         lib.merge_or_launch.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+        lib.filter_select_launch.restype = _I
+        lib.filter_select_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.composite_segments_launch.restype = _I
+        lib.composite_segments_launch.argtypes = [_P, _I, _P, _U32, _P, _I, _I, _P, _P]
         _loaded["cuda"] = lib
     return _loaded["cuda"]
 
@@ -119,5 +148,9 @@ def load_host_shim() -> ctypes.CDLL:
         lib.pack_blocks_aligned_host.argtypes = [_P, _P, _P, _P, _I, _I, _I]
         lib.merge_or_host.restype = None
         lib.merge_or_host.argtypes = [_P, _P, _P, _I, _I, _I]
+        lib.filter_select_host.restype = None
+        lib.filter_select_host.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I]
+        lib.composite_segments_host.restype = _I
+        lib.composite_segments_host.argtypes = [_P, _I, _P, _P, _P, _I, _I]
         _loaded["host"] = lib
     return _loaded["host"]

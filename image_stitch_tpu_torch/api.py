@@ -4,9 +4,11 @@
 
 Each takes the same options (a ``ConcatOptions`` or a dict, snake_case or
 camelCase keys) plus a keyword ``device``: "cuda" (the default) runs the
-band encode on the GPU and raises when CUDA is absent; "cpu" runs the
-plain torch versions of the kernels. ``counters``, when given, receives
-what the encoder did (bands, re-packs, host-coded bands).
+band work (JPEG or PNG encode, positioned compositing) on the GPU and
+raises when CUDA is absent; "cpu" runs the plain torch versions of the
+kernels. ``counters``, when given, receives what the device did (JPEG
+bands, re-packs and host-coded bands; PNG bands; composited and replayed
+positioned bands).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Any, Iterator, Mapping
 from image_stitch_tpu.types import ConcatOptions
 
 from .core import TorchStreamingConcatenator
-from .ops.jpeg_entropy_device import EncodeCounters
+from .ops.counters import EncodeCounters
 
 Options = ConcatOptions | Mapping[str, Any]
 

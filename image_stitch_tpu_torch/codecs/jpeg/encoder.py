@@ -12,7 +12,8 @@ from __future__ import annotations
 
 from image_stitch_tpu.codecs.jpeg.encoder import StreamingJpegEncoder
 
-from ...ops.jpeg_entropy_device import EncodeCounters, TorchJpegEncoder
+from ...ops.counters import EncodeCounters
+from ...ops.jpeg_entropy_device import TorchJpegEncoder
 
 
 def local_words_for_quality(quality: int) -> int:

@@ -1,0 +1,24 @@
+"""What a run did on the device, counted by the modules that do it."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass
+class EncodeCounters:
+    """What a run did on the device.
+
+    JPEG (``TorchJpegEncoder``): bands submitted, on-device re-packs after
+    an overflow, and bands coded on the host because they overflowed every
+    device budget. PNG (``ops.device.TorchBackend``): bands filtered.
+    Positioned compositing (``ops.composite_device.DeviceCompositor``):
+    bands blended on the device, and bands replayed through the host oracle
+    on an exact rational tie."""
+
+    bands: int = 0
+    repacks: int = 0
+    host_fallback_bands: int = 0
+    png_bands: int = 0
+    composite_bands_on_device: int = 0
+    composite_fallback_bands: int = 0

@@ -1,16 +1,23 @@
-"""Band quantize entry points, the counterparts of
-``image_stitch_tpu/ops/device.py::jpeg_quantize_trace`` and
-``jpeg_quantize_420_trace``.
+"""Band entry points on a torch device: JPEG quantize and PNG filter select.
 
-They run on whatever device the band lies on. No hand kernel yet: this
-stage is plain torch (ROADMAP.md lists its kernel as the next to write).
+``jpeg_quantize`` and ``jpeg_quantize_420`` are the counterparts of
+``image_stitch_tpu/ops/device.py::jpeg_quantize_trace`` and
+``jpeg_quantize_420_trace``; they run on whatever device the band lies on,
+in plain torch (ROADMAP.md lists their hand kernel as the next to write).
+``TorchBackend`` is the counterpart of that module's ``JaxBackend`` for PNG
+output: its filter select is the CUDA kernel ``kernels.filter_select``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
+from .counters import EncodeCounters
 from .jpeg_dct import band_to_blocks_islow, band_to_blocks_islow_420
+from .kernels import filter_select, png_bytes
 
 
 def jpeg_quantize(band: torch.Tensor, luma_q: torch.Tensor, chroma_q: torch.Tensor):
@@ -25,3 +32,84 @@ def jpeg_quantize_420(band: torch.Tensor, luma_q: torch.Tensor, chroma_q: torch.
     Returns (y (4n, 64) in MCU order [TL, TR, BL, BR], cb (n, 64),
     cr (n, 64)) int16, n MCUs raster-major."""
     return band_to_blocks_islow_420(band, luma_q, chroma_q)
+
+
+@dataclass
+class PendingFilter:
+    """A submitted band's filter select. ``types``, ``filtered`` and
+    ``last`` are host tensors (pinned on CUDA) that ``done`` marks filled;
+    ``carry`` is the last raw row on the device, the next band's ``prev``."""
+
+    types: torch.Tensor
+    filtered: torch.Tensor
+    last: torch.Tensor
+    carry: torch.Tensor
+    done: torch.cuda.Event | None
+
+
+class TorchBackend:
+    """PNG filter select of ``image_stitch_tpu.ops.backend``'s backend
+    contract on a torch device.
+
+    ``png_filter_band_async`` never waits for the device: it uploads a host
+    band through pinned memory (a tensor is taken where it lies), launches
+    the filter kernel and queues the read-back into pinned host buffers on
+    the current stream. The carry row stays on the device from band to
+    band. ``png_filter_band_wait`` is the only place that synchronises."""
+
+    name = "torch"
+
+    def __init__(self, device, counters: EncodeCounters | None = None):
+        self.device = torch.device(device)
+        self.counters = counters if counters is not None else EncodeCounters()
+
+    def _on_device(self, a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            if a.device.type != self.device.type:
+                raise ValueError(f"tensor on {a.device}, the backend runs on {self.device}")
+            return a.contiguous()
+        a = np.ascontiguousarray(a)
+        # Upload 16-bit samples as their bytes: torch has few uint16 ops.
+        host = torch.from_numpy(a.view(np.uint8) if a.dtype == np.uint16 else a)
+        if self.device.type == "cuda":
+            host = host.pin_memory().to(self.device, non_blocking=True)
+        return host.view(torch.uint16) if a.dtype == np.uint16 else host
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t, non_blocking=True)
+
+    def png_filter_band_async(self, canvas, prev_row) -> PendingFilter:
+        """Queue the filter select of ``canvas`` ((H, W, 4) uint8 or uint16,
+        host array or tensor) after ``prev_row`` (the previous band's last
+        raw row, host or device, or None at the image start)."""
+        band = self._on_device(canvas)
+        if band.ndim != 3 or band.dtype not in (torch.uint8, torch.uint16):
+            raise TypeError(f"expected an (H, W, 4) uint8 or uint16 band, got "
+                            f"{tuple(band.shape)} {band.dtype}")
+        bpp = 8 if band.dtype == torch.uint16 else 4
+        n = band.shape[1] * band.shape[2] * band.element_size()
+        if prev_row is None:
+            prev = torch.zeros(n, dtype=torch.uint8, device=band.device)
+        else:
+            prev = self._on_device(prev_row)
+        types, filtered = filter_select(band, prev, bpp)
+        carry = png_bytes(band[-1:])[0]
+        self.counters.png_bands += 1
+        if band.device.type != "cuda":
+            return PendingFilter(types, filtered, carry, carry, None)
+        done = torch.cuda.Event()
+        pending = PendingFilter(self._to_host(types), self._to_host(filtered),
+                                self._to_host(carry), carry, done)
+        done.record()
+        return pending
+
+    @staticmethod
+    def png_filter_band_wait(pending: PendingFilter) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(types (H,) uint8, filtered (H, N) uint8, last raw row (N,))."""
+        if pending.done is not None:
+            pending.done.synchronize()
+        return pending.types.numpy(), pending.filtered.numpy(), pending.last.numpy()
+
+    def png_filter_band(self, canvas, prev_row) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        return self.png_filter_band_wait(self.png_filter_band_async(canvas, prev_row))

@@ -26,7 +26,6 @@ ops/kernels.py). Symbol codes are below 2^27 and fit int32 as they are.
 from __future__ import annotations
 
 import collections
-from dataclasses import dataclass
 from typing import Mapping
 
 import numpy as np
@@ -34,6 +33,7 @@ import torch
 
 from image_stitch_tpu.codecs.jpeg.tables import ZIGZAG, huffman_lut
 
+from .counters import EncodeCounters
 from .device import jpeg_quantize, jpeg_quantize_420
 from .kernels import merge_or, pack_blocks_aligned
 
@@ -257,17 +257,6 @@ def entropy_pack_carried(yb, cbb, crb, luts: dict, prev_dc: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # Streaming encoder
 # --------------------------------------------------------------------------- #
-
-
-@dataclass
-class EncodeCounters:
-    """What a ``TorchJpegEncoder`` did: bands submitted, on-device re-packs
-    after an overflow, and bands coded on the host because they overflowed
-    every device budget."""
-
-    bands: int = 0
-    repacks: int = 0
-    host_fallback_bands: int = 0
 
 
 def _stuff(payload: np.ndarray) -> bytes:

@@ -1,9 +1,14 @@
-"""Hand-written Hopper kernels of the JPEG entropy stage, with their plain
-torch versions.
+"""Hand-written Hopper kernels, with their plain torch versions.
 
-``pack_blocks_aligned`` (csrc/pack.cu) replaces the Pallas kernel
-``image_stitch_tpu/ops/pallas_kernels.py::_pack_kernel``; ``merge_or``
-(csrc/merge.cu) replaces ``jpeg_entropy_device.py::_merge_aligned_hybrid``.
+- ``pack_blocks_aligned`` (csrc/pack.cu) replaces the Pallas kernel
+  ``image_stitch_tpu/ops/pallas_kernels.py::_pack_kernel``;
+- ``merge_or`` (csrc/merge.cu) replaces
+  ``ops/jpeg_entropy_device.py::_merge_aligned_hybrid``;
+- ``filter_select`` (csrc/filter.cu) replaces the Pallas kernel
+  ``ops/pallas_kernels.py::_filter_kernel`` with the band's byte view;
+- ``composite_segments`` (csrc/composite.cu) replaces the compositor scan
+  ``ops/composite_device.py::_composite_run_trace``.
+
 The sources' head comments say what bounds each on the H100 and what the
 design does about it.
 
@@ -17,6 +22,9 @@ one to the other. ``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Sequence
 
 import torch
 
@@ -185,3 +193,188 @@ def merge_or(local: torch.Tensor, starts: torch.Tensor, n_words: int) -> torch.T
 
 
 merge_or.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# PNG filter select
+# --------------------------------------------------------------------------- #
+
+# Longest row the kernel takes: its int32 sums stay below 128 * n.
+MAX_FILTER_ROW = 1 << 24
+
+
+def png_bytes(band: torch.Tensor) -> torch.Tensor:
+    """(H, ...) uint8 or uint16 band -> (H, N) uint8 rows in PNG byte order,
+    16-bit samples big-endian (``image_stitch_tpu.ops.pixel.band_to_bytes``).
+    A view for uint8; a copy for uint16."""
+    h = band.shape[0]
+    if band.dtype == torch.uint16:
+        return band.reshape(h, -1).view(torch.uint8).reshape(h, -1, 2).flip(-1).reshape(h, -1)
+    return band.reshape(h, -1)
+
+
+def _shift_right(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Each row's bytes k places later, zeros in front."""
+    out = torch.zeros_like(x)
+    if x.shape[1] > k:
+        out[:, k:] = x[:, : x.shape[1] - k]
+    return out
+
+
+def filter_select_plain(band: torch.Tensor, prev: torch.Tensor,
+                        bpp: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch filter select in int32: ``filter_select_trace``
+    (image_stitch_tpu/ops/device.py:59-93) with the strict-``<`` chain of
+    ``_filter_kernel``. Returns (types (H,) uint8, filtered (H, N) uint8)."""
+    raw = png_bytes(band).to(torch.int32)
+    h, n = raw.shape
+    up = torch.cat([prev.to(torch.int32)[None, :], raw[:-1]], dim=0)
+    left = _shift_right(raw, bpp)
+    upleft = _shift_right(up, bpp)
+    p = left + up - upleft
+    pa, pb, pc = (p - left).abs(), (p - up).abs(), (p - upleft).abs()
+    paeth = torch.where((pa <= pb) & (pa <= pc), left, torch.where(pb <= pc, up, upleft))
+    cand = torch.stack([
+        raw,
+        (raw - left) & 0xFF,
+        (raw - up) & 0xFF,
+        (raw - ((left + up) >> 1)) & 0xFF,
+        (raw - paeth) & 0xFF,
+    ])
+    sums = torch.where(cand > 127, 256 - cand, cand).sum(dim=2, dtype=torch.int32)
+    best = sums[0]
+    choice = torch.zeros_like(best)
+    for k in range(1, 5):
+        better = sums[k] < best
+        choice = torch.where(better, k, choice)
+        best = torch.where(better, sums[k], best)
+    filtered = cand.gather(0, choice[None, :, None].expand(1, h, n))[0]
+    return choice.to(torch.uint8), filtered.to(torch.uint8)
+
+
+def filter_select(band: torch.Tensor, prev: torch.Tensor,
+                  bpp: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """PNG filter select over a band: ``band`` (H, ...) contiguous, uint8
+    bytes or uint16 samples (read big-endian), N bytes a row; ``prev`` the
+    (N,) uint8 carry row (zeros at the image start). Returns (types (H,)
+    uint8, filtered (H, N) uint8). Launches csrc/filter.cu for CUDA tensors;
+    the plain version for CPU tensors."""
+    device = band.device
+    if band.dtype not in (torch.uint8, torch.uint16):
+        raise TypeError(f"band: expected uint8 or uint16, got {band.dtype}")
+    if band.ndim < 2:
+        raise ValueError(f"band: expected (H, ...), got shape {tuple(band.shape)}")
+    if not band.is_contiguous():
+        raise ValueError("band: must be contiguous")
+    h = band.shape[0]
+    n = math.prod(band.shape[1:]) * band.element_size()
+    _check(prev, "prev", torch.uint8, 1, device)
+    if prev.shape[0] != n:
+        raise ValueError(f"prev has {prev.shape[0]} bytes, the band's rows {n}")
+    if not 1 <= bpp <= 8:
+        raise ValueError(f"bpp = {bpp} outside [1, 8]")
+    if n >= MAX_FILTER_ROW:
+        raise ValueError(f"rows of {n} bytes: the kernel takes fewer than {MAX_FILTER_ROW}")
+    if device.type == "cpu":
+        return filter_select_plain(band, prev, bpp)
+    if device.type != "cuda":
+        raise ValueError(f"filter_select: unsupported device {device}")
+    types = torch.empty(h, dtype=torch.uint8, device=device)
+    filtered = torch.empty((h, n), dtype=torch.uint8, device=device)
+    if h == 0:
+        return types, filtered
+    lib = load_cuda_kernels()
+    _launch(
+        lib.filter_select_launch, band.data_ptr(), prev.data_ptr(), filtered.data_ptr(),
+        types.data_ptr(), h, n, bpp, int(band.dtype == torch.uint16), _stream(device),
+    )
+    filter_select.launches += 1
+    return types, filtered
+
+
+filter_select.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# Positioned alpha compositing
+# --------------------------------------------------------------------------- #
+
+# Columns of a segment's meta row (csrc/composite.cuh META_*).
+META_COLS = 6
+
+
+def composite_segments_plain(metas: torch.Tensor, srcs: torch.Tensor, bg: Sequence[int],
+                             height: int, width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch compositing: a Python loop over the segments that applies
+    the exact integer "over" of ``_alpha_over_window_u8``
+    (image_stitch_tpu/ops/composite_device.py:50-81) to each window in
+    int32. ``metas`` as for ``composite_segments``. Returns (band (height,
+    width, 4) uint8, ties () int32)."""
+    device = srcs.device
+    out = torch.tensor(list(bg), dtype=torch.uint8, device=device).expand(height, width, 4).clone()
+    ties = torch.zeros((), dtype=torch.int32, device=device)
+    for y0, x0, h, w, offset, stride in metas.tolist():
+        if h == 0 or w == 0:
+            continue
+        s = torch.as_strided(srcs, (h, w, 4), (stride, 4, 1), offset).to(torch.int32)
+        window = out[y0 : y0 + h, x0 : x0 + w]
+        d = window.to(torch.int32)
+        a_s, a_d = s[:, :, 3], d[:, :, 3]
+        copy = a_s == 255
+        blend = (a_s > 0) & ~copy
+        wd = a_d * (255 - a_s)
+        den = 255 * a_s + wd
+        den_safe = den.clamp(min=1)[:, :, None]
+        num = s[:, :, :3] * (255 * a_s)[:, :, None] + d[:, :, :3] * wd[:, :, None]
+        q = (2 * num + den_safe) // (2 * den_safe)
+        new_a = (2 * den + 255) // 510
+        tie = blend & ((2 * num) % (2 * den_safe) == den_safe).any(dim=2)
+        rgb = torch.where(copy[:, :, None], s[:, :, :3],
+                          torch.where(blend[:, :, None], q, d[:, :, :3]))
+        alpha = torch.where(copy, a_s, torch.where(blend, new_a, a_d))
+        window.copy_(torch.cat([rgb, alpha[:, :, None]], dim=2).to(torch.uint8))
+        ties += tie.sum().to(torch.int32)
+    return out, ties
+
+
+def composite_segments(metas: torch.Tensor, srcs: torch.Tensor, bg: Sequence[int],
+                       height: int, width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blend z-ordered segments (back to front) over a uniform background.
+
+    ``metas`` (S, 6) int64 rows (y0, x0, h, w, byte offset of the first
+    pixel in ``srcs``, row stride in bytes), int64 so that ``srcs`` may hold
+    2 GiB or more; ``srcs`` the segments' packed
+    RGBA uint8 pixels; ``bg`` the background's four values. The metas are
+    trusted: the caller keeps every segment inside the (height, width) band
+    and its pixels inside ``srcs``. Returns (band (height, width, 4) uint8,
+    ties () int32, the count of blends on an exact rational tie). Launches
+    csrc/composite.cu for CUDA tensors; the plain version for CPU tensors."""
+    device = srcs.device
+    _check(metas, "metas", torch.int64, 2, device)
+    _check(srcs, "srcs", torch.uint8, 1, device)
+    if metas.shape[1] != META_COLS:
+        raise ValueError(f"metas: expected (S, {META_COLS}), got {tuple(metas.shape)}")
+    bg = tuple(int(v) for v in bg)
+    if len(bg) != 4 or not all(0 <= v <= 255 for v in bg):
+        raise ValueError(f"bg: expected four values in [0, 255], got {bg}")
+    if height < 0 or width < 0:
+        raise ValueError(f"band size {height} x {width}")
+    if device.type == "cpu":
+        return composite_segments_plain(metas, srcs, bg, height, width)
+    if device.type != "cuda":
+        raise ValueError(f"composite_segments: unsupported device {device}")
+    out = torch.empty((height, width, 4), dtype=torch.uint8, device=device)
+    ties = torch.zeros((), dtype=torch.int32, device=device)
+    if height * width == 0:
+        return out, ties
+    lib = load_cuda_kernels()
+    _launch(
+        lib.composite_segments_launch, metas.data_ptr(), metas.shape[0], srcs.data_ptr(),
+        bg[0] | bg[1] << 8 | bg[2] << 16 | bg[3] << 24, out.data_ptr(), height, width,
+        ties.data_ptr(), _stream(device),
+    )
+    composite_segments.launches += 1
+    return out, ties
+
+
+composite_segments.launches = 0

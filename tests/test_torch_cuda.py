@@ -15,7 +15,7 @@ import torch
 import image_stitch_tpu
 import image_stitch_tpu_torch
 from image_stitch_tpu.codecs.png.writer import build_png
-from image_stitch_tpu.types import PngHeader
+from image_stitch_tpu.types import PngHeader, PositionedImage
 from image_stitch_tpu_torch.ops import kernels as K
 
 pytestmark = pytest.mark.cuda
@@ -73,3 +73,93 @@ def test_slice_matches_host(cuda, ri, sampling):
     got = image_stitch_tpu_torch.concat_to_buffer(opts, device=cuda, counters=counters)
     assert got == image_stitch_tpu.concat_to_buffer({**opts, "backend": "numpy"})
     assert counters.bands > 0
+
+
+@pytest.mark.parametrize("shape,dtype,bpp", [((37, 11, 4), np.uint8, 4),
+                                             ((256, 2048, 4), np.uint16, 8),
+                                             ((9, 3), np.uint8, 4)])
+def test_filter_select_matches_plain(cuda, shape, dtype, bpp):
+    rng = np.random.default_rng(shape[0])
+    band = rng.integers(0, np.iinfo(dtype).max + 1, shape, dtype=dtype)
+    t = torch.from_numpy(band.view(np.uint8)).to(cuda)
+    if dtype == np.uint16:
+        t = t.view(torch.uint16)
+    n = band[0].nbytes
+    prev = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).to(cuda)
+    launches = K.filter_select.launches
+    types, filtered = K.filter_select(t, prev, bpp)
+    p_types, p_filtered = K.filter_select_plain(t, prev, bpp)
+    torch.cuda.synchronize()
+    assert torch.equal(types, p_types) and torch.equal(filtered, p_filtered)
+    assert K.filter_select.launches == launches + 1
+
+
+def segments(rng, n, h, w):
+    metas, parts, off = [], [], 0
+    for _ in range(n):
+        sh, sw = int(rng.integers(1, h + 1)), int(rng.integers(1, w + 1))
+        px = rng.integers(0, 256, (sh, sw, 4), dtype=np.uint8)
+        metas.append((int(rng.integers(0, h - sh + 1)), int(rng.integers(0, w - sw + 1)),
+                      sh, sw, off, sw * 4))
+        parts.append(px.reshape(-1))
+        off += px.size
+    return np.array(metas, np.int64), np.concatenate(parts)
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 8, 8), (12, 64, 333), (50, 256, 2048)])
+def test_composite_segments_matches_plain(cuda, n, h, w):
+    metas, srcs = (torch.from_numpy(a).to(cuda) for a in segments(np.random.default_rng(n), n, h, w))
+    launches = K.composite_segments.launches
+    band, ties = K.composite_segments(metas, srcs, (3, 4, 5, 0), h, w)
+    p_band, p_ties = K.composite_segments_plain(metas, srcs, (3, 4, 5, 0), h, w)
+    torch.cuda.synchronize()
+    assert torch.equal(band, p_band) and int(ties) == int(p_ties)
+    assert K.composite_segments.launches == launches + 1
+
+
+def test_grid_and_positioned_png_match_host(cuda):
+    rng = np.random.default_rng(5)
+    tiles = [png_from_array(rng.integers(0, 256, (72, 100, 4), dtype=np.uint8)) for _ in range(4)]
+    alpha = rng.integers(0, 256, (40, 30, 4), dtype=np.uint8)
+    alpha[:, :, 3] = np.linspace(30, 230, 30).astype(np.uint8)[None, :]
+    cases = [
+        {"inputs": tiles, "layout": {"columns": 2}, "bandHeight": 48},
+        {"inputs": [PositionedImage(0, 0, tiles[0]), PositionedImage(20, 10, png_from_array(alpha)),
+                    PositionedImage(60, 40, png_from_array(alpha), z_index=1)], "bandHeight": 32},
+    ]
+    for opts in cases:
+        opts = {**opts, "outputFormat": "png"}
+        counters = image_stitch_tpu_torch.EncodeCounters()
+        launches = K.filter_select.launches
+        got = image_stitch_tpu_torch.concat_to_buffer(opts, device=cuda, counters=counters)
+        assert got == image_stitch_tpu.concat_to_buffer({**opts, "backend": "numpy"})
+        assert counters.png_bands > 0 and K.filter_select.launches == launches + counters.png_bands
+    # One band of the positioned case holds an exact rational tie and is
+    # replayed on the host, as on the CPU.
+    assert (counters.composite_bands_on_device, counters.composite_fallback_bands) == (2, 1)
+
+
+def test_positioned_jpeg_and_stream_bands_match_host(cuda):
+    """Bands blended on the card are read back for the JPEG encoder and for
+    stream_bands."""
+    from image_stitch_tpu.core import CoreStreamingConcatenator
+
+    rng = np.random.default_rng(6)
+    opaque = rng.integers(0, 256, (64, 96, 4), dtype=np.uint8)
+    opaque[:, :, 3] = 255  # no exact tie can occur over an opaque pixel
+    base = png_from_array(opaque)
+    alpha = rng.integers(0, 256, (40, 30, 4), dtype=np.uint8)
+    alpha[:, :, 3] = np.linspace(30, 230, 30).astype(np.uint8)[None, :]
+    opts = {"inputs": [PositionedImage(0, 0, base), PositionedImage(20, 10, png_from_array(alpha))],
+            "bandHeight": 32, "outputFormat": "jpeg"}
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    got = image_stitch_tpu_torch.concat_to_buffer(opts, device=cuda, counters=counters)
+    assert got == image_stitch_tpu.concat_to_buffer({**opts, "backend": "numpy"})
+    assert counters.composite_bands_on_device > 0
+    bands = list(image_stitch_tpu_torch.TorchStreamingConcatenator(
+        opts, device=cuda).stream_bands())
+    ref = list(CoreStreamingConcatenator({**opts, "backend": "numpy"}).stream_bands())
+    assert len(bands) == len(ref)
+    for a, b in zip(bands, ref):
+        assert type(a) is np.ndarray
+        np.testing.assert_array_equal(a, b)

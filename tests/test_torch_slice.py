@@ -1,11 +1,13 @@
-"""The torch port's grid/positioned -> JPEG slice, end to end.
+"""The torch port's grid/positioned -> JPEG and PNG slices, end to end.
 
 ``image_stitch_tpu_torch.concat_to_buffer(..., device="cpu")`` (the
 kernels' plain versions) against ``image_stitch_tpu.concat_to_buffer`` with
 ``backend="jax"`` (JAX on the CPU) and ``backend="numpy"`` (the host tier):
-the bytes must be equal. Mirrors tests/unit/test_jpeg_restart.py.
+the bytes must be equal. Mirrors tests/unit/test_jpeg_restart.py and
+tests/unit/test_composite_device.py.
 """
 
+import io
 import os
 import subprocess
 import sys
@@ -88,8 +90,8 @@ def test_qualities_match_host(quality):
 
 
 def test_positioned_alpha_matches_host():
-    """Positioned inputs with alpha over a background: compositing stays on
-    the host, the encode runs in torch."""
+    """Positioned inputs with alpha over a background: compositing and the
+    encode run in torch."""
     a = make_image(64, 48, seed=3)
     b = make_image(40, 40, seed=4)
     b[:, :, 3] = np.linspace(40, 220, 40).astype(np.uint8)[None, :]
@@ -102,19 +104,122 @@ def test_positioned_alpha_matches_host():
     assert port(opts) == host(opts)
 
 
-def test_streaming_and_file_entry_points(tmp_path):
-    opts = grid_options(64, 48, 0)
+@pytest.mark.parametrize("fmt", ["jpeg", "png"])
+def test_streaming_and_file_entry_points(tmp_path, fmt):
+    opts = {**grid_options(64, 48, 0), "outputFormat": fmt}
     whole = port(opts)
     assert b"".join(image_stitch_tpu_torch.concat_streaming(opts, device="cpu")) == whole
-    path = tmp_path / "out.jpg"
+    path = tmp_path / f"out.{fmt}"
     image_stitch_tpu_torch.concat_to_file(opts, path, device="cpu")
     assert path.read_bytes() == whole
 
 
-def test_png_output_raises():
-    opts = {**grid_options(64, 48, 0), "outputFormat": "png"}
-    with pytest.raises(StitchError, match="ROADMAP"):
-        port(opts)
+def png_grid_options(w, h, bit_depth=8, band=32, level=6):
+    """A 2 x 2 grid of noisy w x h tiles to PNG output."""
+    if bit_depth == 16:
+        rng = np.random.default_rng(w * h)
+        tiles = [png_from_array(rng.integers(0, 65536, (h, w, 4), dtype=np.uint16), bit_depth=16)
+                 for _ in range(4)]
+    else:
+        tiles = [png_from_array(make_image(w, h, seed=s)) for s in range(4)]
+    return {"inputs": tiles, "layout": {"columns": 2}, "outputFormat": "png",
+            "bandHeight": band, "pngCompressionLevel": level}
+
+
+@pytest.mark.parametrize("bit_depth", [8, 16])
+@pytest.mark.parametrize("w,h,band", [(48, 40, 32), (45, 37, 16)])
+def test_grid_png_matches_jax_and_host(bit_depth, w, h, band):
+    """(45, 37, 16): a 90-px-wide canvas (neither a multiple of 4 nor 8)
+    whose 16-row bands split the tiles, so the carry crosses bands inside a
+    tile."""
+    opts = png_grid_options(w, h, bit_depth, band)
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    got = port(opts, counters=counters)
+    assert got == host(opts, "jax") == host(opts)
+    assert counters.png_bands == -(-2 * h // band)
+
+
+@pytest.mark.parametrize("level", [1, 9])
+def test_png_levels_match_host(level):
+    opts = png_grid_options(45, 37, level=level)
+    assert port(opts) == host(opts)
+
+
+def sprite_png(seed, w, h):
+    """test_composite_device.py's sprites: random RGBA, random alpha."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(seed).integers(0, 256, (h, w, 4), dtype=np.uint8),
+                    "RGBA").save(buf, "PNG")
+    return buf.getvalue()
+
+
+def positioned_inputs():
+    """tests/unit/test_composite_device.py:91-101: a 120 x 90 sprite and 8
+    smaller ones at random places and z indices."""
+    inputs = [{"source": sprite_png(0, 120, 90), "x": 0, "y": 0}]
+    rng = np.random.default_rng(7)
+    for i in range(8):
+        inputs.append({
+            "source": sprite_png(i + 1, int(rng.integers(15, 50)), int(rng.integers(15, 50))),
+            "x": int(rng.integers(0, 90)),
+            "y": int(rng.integers(0, 70)),
+            "z_index": int(rng.integers(0, 4)),
+        })
+    return inputs
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpeg"])
+def test_positioned_random_alpha_matches_jax_and_host(fmt):
+    """Device compositing with exact-tie replays, then the encode."""
+    opts = {"inputs": positioned_inputs(), "bandHeight": 32, "outputFormat": fmt}
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    got = port(opts, counters=counters)
+    assert got == host(opts, "jax") == host(opts)
+    assert counters.composite_bands_on_device > 0 and counters.composite_fallback_bands > 0
+    assert counters.composite_bands_on_device + counters.composite_fallback_bands == 4
+
+
+def test_positioned_16bit_png_matches_host():
+    """16-bit bands composite on the host, then filter in torch."""
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, 65536, (40, 50, 4), dtype=np.uint16)
+    b = rng.integers(0, 65536, (20, 30, 4), dtype=np.uint16)
+    opts = {"inputs": [PositionedImage(0, 0, png_from_array(a, bit_depth=16)),
+                       PositionedImage(10, 12, png_from_array(b, bit_depth=16))],
+            "outputFormat": "png", "bandHeight": 16}
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    assert port(opts, counters=counters) == host(opts, "jax") == host(opts)
+    assert counters.composite_bands_on_device == 0 and counters.png_bands == 3
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpeg"])
+def test_positioned_without_blending_matches_host(fmt):
+    """enableAlphaBlending false: sources overwrite, on the host."""
+    opts = {"inputs": positioned_inputs(), "bandHeight": 32, "outputFormat": fmt,
+            "enableAlphaBlending": False}
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    assert port(opts, counters=counters) == host(opts)
+    assert counters.composite_bands_on_device == counters.composite_fallback_bands == 0
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpeg"])
+def test_positioned_stream_bands_are_host_arrays(fmt):
+    """stream_bands hands out host arrays, bands blended on the device
+    included, equal to the host tier's, whatever the output format."""
+    from image_stitch_tpu.core import CoreStreamingConcatenator
+
+    opts = {"inputs": positioned_inputs(), "bandHeight": 32, "outputFormat": fmt}
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    got = list(image_stitch_tpu_torch.TorchStreamingConcatenator(
+        opts, device="cpu", counters=counters).stream_bands())
+    ref = list(CoreStreamingConcatenator({**opts, "backend": "numpy"}).stream_bands())
+    assert all(type(b) is np.ndarray for b in got)
+    assert len(got) == len(ref) == 4
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    assert counters.composite_bands_on_device > 0
 
 
 @pytest.mark.parametrize("bad", [{"mesh": 2}, {"backend": "jax"}, {"backend": "numpy"}])
@@ -130,17 +235,28 @@ def test_cuda_without_cuda_raises(monkeypatch):
 
 
 def test_slice_runs_without_jax():
-    """The port imports no jax: a fresh process runs the slice and checks
+    """The port imports no jax: a fresh process runs the JPEG slice and the
+    PNG slice (grid, and positioned with device compositing) and checks
     sys.modules afterwards."""
     code = (
         "import sys, numpy as np\n"
         "import image_stitch_tpu_torch\n"
+        "from image_stitch_tpu.types import PositionedImage\n"
         "from tests.utils.fixtures import png_from_array\n"
         "img = np.full((32, 40, 4), 200, np.uint8)\n"
         "out = image_stitch_tpu_torch.concat_to_buffer({'inputs': [png_from_array(img)] * 2,"
         " 'layout': {'columns': 2}, 'outputFormat': 'jpeg',"
         " 'jpegRestartIntervalRows': 1}, device='cpu')\n"
         "assert out[:2] == b'\\xff\\xd8' and out[-2:] == b'\\xff\\xd9'\n"
+        "out = image_stitch_tpu_torch.concat_to_buffer({'inputs': [png_from_array(img)] * 2,"
+        " 'layout': {'columns': 2}, 'outputFormat': 'png'}, device='cpu')\n"
+        "assert out[:8] == b'\\x89PNG\\r\\n\\x1a\\n' and out[-8:-4] == b'IEND'\n"
+        "img[:, :, 3] = 90\n"
+        "c = image_stitch_tpu_torch.EncodeCounters()\n"
+        "out = image_stitch_tpu_torch.concat_to_buffer({'inputs': ["
+        "PositionedImage(0, 0, png_from_array(img)), PositionedImage(5, 6, png_from_array(img))],"
+        " 'outputFormat': 'png'}, device='cpu', counters=c)\n"
+        "assert out[-8:-4] == b'IEND' and c.composite_bands_on_device == 1\n"
         "print('jax' in sys.modules)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
