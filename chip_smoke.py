@@ -2,45 +2,61 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its lines before the last:
+Imports nothing of jax or of ``image_stitch_tpu``: inputs are made with the
+port's own PNG writer and types, and every reference is the port's own CPU
+path. Phases, each printing its lines before the last:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; exits non-zero without a usable CUDA device;
 2. build: the hand-written kernels (image_stitch_tpu_torch/csrc) with nvcc
-   for sm_90a, one process per source, timed as set-up;
+   for sm_90a, one process per source, and the port's host C++ library
+   (image_stitch_tpu_torch/native) with g++, timed as set-up;
 3. kernels against their plain torch versions on the card, at the main
-   paths' shapes: pack and merge on one 256 x 8192 4:4:4 band (98,304
-   blocks) of random symbol streams with zero-length slots, an odd slot
-   count and unaligned starts, at 14 and 26 words per block; filter select
-   on 256 x 8192 RGBA8 and 256 x 4096 and 256 x 8192 RGBA16 bands of random
-   bytes after a non-zero carry row, on a band of zeros (every filter ties
-   and None must win) and on rows narrower than bpp; compositing of 50
-   random segments of partial alpha into a 256 x 8192 band, and the exact
-   rational tie case, which must count ties. Outputs must be equal;
+   paths' shapes: pack_merge on one 256 x 8192 4:4:4 band (98,304 blocks)
+   of random symbol streams with zero-length slots, an odd slot count,
+   unaligned starts and 1% of blocks over budget, at 14 and 26 words per
+   block, into a stream that holds every word and one that drops the last
+   three; filter select on 256 x 8192 RGBA8 and 256 x 4096 and 256 x 8192
+   RGBA16 bands of random bytes after a non-zero carry row, on a band of
+   zeros (every filter ties and None must win) and on rows narrower than
+   bpp; compositing of 50 random segments of partial alpha into a 256 x
+   8192 band, and the exact rational tie case, which must count ties.
+   Outputs must be equal;
 4. main paths, through ``image_stitch_tpu_torch.concat_to_buffer(...,
-   device="cuda")``, each output byte-identical to
-   ``image_stitch_tpu.concat_to_buffer`` with ``backend="numpy"`` (the JAX
-   package's host tier, which loads no jax). Every kernel's launch count
-   is set to 0 just before each run and read just after it:
+   device="cuda")``, each output byte-identical to the same call with
+   ``device="cpu"`` (the plain torch versions; the CPU tests hold that path
+   to the JAX package byte for byte), whose seconds are printed. Every
+   kernel's launch count is set to 0 just before each card run and read
+   just after it:
    - JPEG: an 8 x 8 grid of 1024 x 1024 photo-like RGBA PNG tiles (a 67 MP
-     canvas, made from a seed) at q85 with restart rows 1 and 0 (4:4:4)
-     and 1 (4:2:0); pack and merge must launch in each run and no band may
-     be host-coded;
-   - PNG: the same grid to PNG (level 6) and a 4 x 4 grid of 1024 x 1024
+     canvas, made from a seed) at q85 with restart rows 1 (4:4:4); a 2 x 2
+     grid of those tiles with restart rows 0 (4:4:4) and 1 (4:2:0);
+     pack_merge must launch once per dispatched band (32 in the 67 MP run)
+     and no band may be host-coded;
+   - PNG: the 67 MP grid to PNG (level 6) and a 2 x 2 grid of 1024 x 1024
      RGBA16 tiles to PNG, filter select launched once for each band; a
      2048 x 2048 background under 50 sprites of 128 x 128 with partial
      alpha and random z order to PNG (compositing and filter select must
-     launch) and to JPEG q85 (compositing, pack and merge must launch);
-     then compositing against its plain version on the positioned runs'
-     most crowded real band;
-5. timing: per-band device time of each JPEG stage and of the kernel path
-   against the plain torch path, and of each PNG-path kernel against its
-   plain version (CUDA events, median and spread over repetitions after a
-   warm-up); end-to-end MP/s of the torch path and of the host tier, in
-   turns, for grid to JPEG, grid to PNG and positioned to PNG.
+     launch) and to JPEG q85 (compositing and pack_merge must launch, 8
+     times each); then compositing against its plain version on the
+     positioned runs' most crowded real band;
+5. timing: per-band time of each JPEG stage, of pack_merge against its
+   plain version (the plain pack, then the plain merge) and against
+   ``index_add_`` of the same words (the one PyTorch call that computes the
+   merge), and of each PNG-path kernel against its plain version: CUDA
+   events around each call (median and spread over repetitions after a
+   warm-up), and for the hand kernels and ``index_add_`` also the device
+   time per call from torch.profiler, which leaves out host launch time
+   (the ``ms`` and ``library_ms`` of the kernel line); end-to-end
+   MP/s of the torch path for grid to JPEG, grid to PNG and positioned to
+   PNG, and of host decode + assembly and host deflate alone; one profiled
+   run each of grid to JPEG and grid to PNG.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
+The line before the last is a JSON object with one entry per kernel: its
+launches on the main paths, its max |kernel - plain|, its median time, the
+plain version's and the library call's, and its least time on the card
+(``bound_ms``: the bytes it must move over 3.35 TB/s). The last line is
+``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -58,12 +74,15 @@ import torch
 SEED = 1234
 TILE = 1024
 GRID = 8
+SMALL = 2  # the 2 x 2 grids of the runs compared off the main path's size
 BAND_ROWS = 256
 QUALITY = 85
 GRID16 = 4
 SIDE = 2048
 SPRITES = 50
 SPRITE = 128
+# H100 SXM device memory rate (NVIDIA data sheet), for the bytes bound.
+HBM_BYTES_PER_S = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -100,9 +119,9 @@ def photo_tile(rng: np.random.Generator, size: int) -> np.ndarray:
 def png_bytes(rgba: np.ndarray) -> bytes:
     """Encode an (H, W, 4) uint8 or uint16 array as a PNG: filter 0 rows,
     one IDAT."""
-    from image_stitch_tpu.codecs.png.writer import build_png
-    from image_stitch_tpu.ops.pixel import band_to_bytes
-    from image_stitch_tpu.types import PngHeader
+    from image_stitch_tpu_torch.codecs.png.writer import build_png
+    from image_stitch_tpu_torch.ops.pixel import band_to_bytes
+    from image_stitch_tpu_torch.types import PngHeader
 
     h, w, _ = rgba.shape
     raw = np.concatenate([np.zeros((h, 1), np.uint8), band_to_bytes(rgba)], axis=1)
@@ -123,7 +142,7 @@ def positioned_inputs(rng: np.random.Generator) -> list:
     """bench.py's positioned layout: a SIDE x SIDE photo-like background and
     SPRITES sprites of SPRITE x SPRITE at random places and z indices, each
     with its own colours and a 30-230 alpha ramp."""
-    from image_stitch_tpu.types import PositionedImage
+    from image_stitch_tpu_torch.types import PositionedImage
 
     inputs = [PositionedImage(x=0, y=0, source=png_bytes(photo_tile(rng, SIDE)))]
     for _ in range(SPRITES):
@@ -158,6 +177,32 @@ def time_cuda(fn, reps: int = 20, warmup: int = 3) -> dict:
     return {"median": statistics.median(ms), "min": min(ms), "max": max(ms), "reps": reps}
 
 
+def device_time(fn, reps: int = 20, windows: int = 3) -> dict:
+    """Device time per call of ``fn`` from torch.profiler (CUPTI): the
+    durations of the kernels and copies it runs, summed over ``reps`` calls
+    and divided by ``reps``; median, min and max over ``windows`` such
+    windows after a warm-up. Host launch time is not in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us <= 0:
+            fail("torch.profiler recorded no device activity")
+        per_call.append(us / 1e3 / reps)
+    return {"median": statistics.median(per_call), "min": min(per_call),
+            "max": max(per_call), "reps": windows}
+
+
 def fmt(t: dict) -> str:
     return f"{t['median']:.4f} ms (min {t['min']:.4f}, max {t['max']:.4f}, n={t['reps']})"
 
@@ -171,12 +216,15 @@ def as_u32(t: torch.Tensor) -> torch.Tensor:
 
 def random_streams(rng: np.random.Generator, nb: int, n_sym: int, local_words: int):
     """Random (codes, lens, starts) symbol streams: ~30% zero-length slots,
-    codes masked to their lengths, blocks within the local_words budget,
-    and a first start that is not word-aligned."""
+    codes masked to their lengths, a first start that is not word-aligned,
+    and blocks within the local_words budget except 1% of them, whose
+    slots all take 12 to 16 bits (780 to 1040 bits, over both budgets)."""
     lens = rng.integers(0, 17, size=(nb, n_sym)).astype(np.int32)
     lens[rng.random(lens.shape) < 0.3] = 0
     over = lens.sum(axis=1) > local_words * 32
     lens[over] = np.minimum(lens[over], 4)
+    big = rng.random(nb) < 0.01
+    lens[big] = rng.integers(12, 17, size=(int(big.sum()), n_sym))
     mask = ((1 << lens.astype(np.int64)) - 1).astype(np.int64)
     codes = (rng.integers(0, 1 << 16, size=(nb, n_sym)) & mask).astype(np.int32)
     starts = (
@@ -186,33 +234,29 @@ def random_streams(rng: np.random.Generator, nb: int, n_sym: int, local_words: i
 
 
 def check_kernels(dev: torch.device) -> dict:
-    """Max |kernel - plain| per kernel over the random streams (each must
-    be 0)."""
+    """Max |pack_merge - plain| over the random streams (must be 0)."""
     from image_stitch_tpu_torch.ops import kernels as K
 
-    errs = {"pack_blocks_aligned": 0, "merge_or": 0}
+    errs = {"pack_merge": 0}
     rng = np.random.default_rng(SEED)
     nb = (BAND_ROWS // 8) * (GRID * TILE // 8) * 3
     for local_words in (12, 24):
         codes, lens, starts = random_streams(rng, nb, 65, local_words)
+        n_over = int((lens.sum(axis=1) > local_words * 32).sum())
         c, l, s = (torch.from_numpy(a).to(dev) for a in (codes, lens, starts))
-        got = K.pack_blocks_aligned(c, l, s, local_words)
-        ref = K.pack_blocks_aligned_plain(c, l, s, local_words)
-        torch.cuda.synchronize()
-        err = int((as_u32(got) - as_u32(ref)).abs().max())
-        errs["pack_blocks_aligned"] = max(errs["pack_blocks_aligned"], err)
-        if err:
-            fail(f"pack_blocks_aligned != plain at nb={nb}, AW={local_words + 2}: max |diff| {err}")
-        n_words = int((starts[-1] + lens[-1].sum()) // 32) + 1
-        d_got = K.merge_or(got, s, n_words)
-        d_ref = K.merge_or_plain(ref, s, n_words)
-        torch.cuda.synchronize()
-        err = int((as_u32(d_got) - as_u32(d_ref)).abs().max())
-        errs["merge_or"] = max(errs["merge_or"], err)
-        if err:
-            fail(f"merge_or != plain at nb={nb}, AW={local_words + 2}: max |diff| {err}")
-        say(f"kernels == plain on random streams: nb={nb}, n_sym=65, AW={local_words + 2}, "
-            f"first start bit {int(starts[0])}, {n_words} dense words")
+        full = int((starts[-1] + lens[-1].sum()) // 32) + 1
+        for n_words in (full, full - 3):
+            got = K.pack_merge(c, l, s, local_words, n_words)
+            ref = K.pack_merge_plain(c, l, s, local_words, n_words)
+            torch.cuda.synchronize()
+            err = max_err(as_u32(got), as_u32(ref))
+            errs["pack_merge"] = max(errs["pack_merge"], err)
+            if err:
+                fail(f"pack_merge != plain at nb={nb}, AW={local_words + 2}, "
+                     f"n_words={n_words}: max |diff| {err}")
+        say(f"pack_merge == plain on random streams: nb={nb}, n_sym=65, AW={local_words + 2}, "
+            f"{n_over} blocks over budget, first start bit {int(starts[0])}, {full} and "
+            f"{full - 3} dense words")
     return errs
 
 
@@ -316,25 +360,31 @@ def check_composite(metas, srcs, bg, h: int, w: int, what: str) -> tuple[int, in
     return err, int(ties)
 
 
-def same_as_host(out: bytes, opts: dict, what: str) -> None:
-    import image_stitch_tpu
+def same_as_cpu(out: bytes, opts: dict, what: str) -> None:
+    """``out`` must equal the port's ``device="cpu"`` output for ``opts``."""
+    import image_stitch_tpu_torch
 
-    ref = image_stitch_tpu.concat_to_buffer({**opts, "backend": "numpy"})
+    t0 = time.perf_counter()
+    ref = image_stitch_tpu_torch.concat_to_buffer(opts, device="cpu")
+    secs = time.perf_counter() - t0
     if out != ref:
         n = min(len(out), len(ref))
         first = next((i for i in range(n) if out[i] != ref[i]), n)
-        fail(f"{what}: torch output ({len(out)} B) != host tier ({len(ref)} B), "
+        fail(f"{what}: card output ({len(out)} B) != CPU output ({len(ref)} B), "
              f"first difference at byte {first}")
+    say(f"main path {what}: byte-identical to the port's CPU path ({secs:.2f} s on the CPU)")
 
 
-COUNTED = ("pack_blocks_aligned", "merge_or", "filter_select", "composite_segments")
+COUNTED = ("pack_merge", "filter_select", "composite_segments")
 
 
 def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
              must_launch: tuple[str, ...]):
     """One main-path run through ``image_stitch_tpu_torch.concat_to_buffer``
     with every kernel's launch count set to 0 just before it and read just
-    after; each kernel in ``must_launch`` must have launched in this run.
+    after; each kernel in ``must_launch`` must have launched in this run,
+    pack_merge once per band dispatched (bands submitted plus re-packs) and
+    filter select once per PNG band. The output must equal the CPU path's.
     Returns (output, launches, counters)."""
     import image_stitch_tpu_torch
     from image_stitch_tpu_torch.ops import kernels as K
@@ -351,6 +401,20 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
             fail(f"{name}: {k} was not launched")
     say(f"main path {name}: {megapixels:.1f} MP -> {len(out)} B, torch path {secs:.3f} s; "
         f"launches {launches}; counters {counters}")
+    if counters.host_fallback_bands:
+        fail(f"{name}: {counters.host_fallback_bands} bands were coded on the host")
+    if opts["outputFormat"] == "jpeg":
+        if out[:2] != b"\xff\xd8" or out[-2:] != b"\xff\xd9":
+            fail(f"{name}: not a JPEG stream")
+        if launches["pack_merge"] != counters.bands + counters.repacks:
+            fail(f"{name}: {launches['pack_merge']} pack_merge launches for "
+                 f"{counters.bands} bands and {counters.repacks} re-packs")
+    elif launches["filter_select"] != counters.png_bands:
+        fail(f"{name}: {launches['filter_select']} filter launches for "
+             f"{counters.png_bands} bands")
+    if "composite_segments" in must_launch and not counters.composite_bands_on_device:
+        fail(f"{name}: no band was blended on the card")
+    same_as_cpu(out, opts, name)
     return out, launches, counters
 
 
@@ -359,46 +423,20 @@ def add_launches(total: dict, launches: dict) -> None:
         total[k] = total.get(k, 0) + n
 
 
-def main_path(tiles_png: list[bytes], dev: torch.device, runs) -> dict:
-    """The grid to JPEG at each (restart rows, sampling) of ``runs``, each
-    byte-identical to the host tier; pack and merge must launch in each run
-    and no band may be host-coded. Returns the launches summed over runs."""
-    megapixels = GRID * GRID * TILE * TILE / 1e6
-    base = {
-        "inputs": tiles_png, "layout": {"columns": GRID}, "outputFormat": "jpeg",
-        "jpegQuality": QUALITY, "bandHeight": BAND_ROWS,
-    }
-    total: dict = {}
-    for ri, sampling in runs:
-        opts = {**base, "jpegRestartIntervalRows": ri, "jpegSampling": sampling}
-        name = f"grid -> JPEG ri={ri} {sampling} q{QUALITY}"
-        out, launches, counters = run_path(name, opts, megapixels, dev,
-                                           ("pack_blocks_aligned", "merge_or"))
-        if counters.host_fallback_bands:
-            fail(f"{name}: {counters.host_fallback_bands} bands were coded on the host")
-        if out[:2] != b"\xff\xd8" or out[-2:] != b"\xff\xd9":
-            fail(f"{name}: not a JPEG stream")
-        same_as_host(out, opts, name)
-        say(f"main path {name}: byte-identical to the numpy host tier")
-        add_launches(total, launches)
-    return total
-
-
-def png_main_path(cases: list[tuple[str, dict, float, tuple[str, ...]]],
-                  dev: torch.device) -> tuple[dict, int]:
+def main_paths(cases: list[tuple[str, dict, float, tuple[str, ...]]],
+               dev: torch.device) -> tuple[dict, int]:
     """Each (name, options, megapixels, kernels that must launch) case run
-    on its own counts and held byte for byte against the host tier. A PNG
-    run filters every band on the card, once; a positioned run blends bands
-    on the card. The most crowded band that the positioned runs hand to
-    composite_segments is held against its plain version afterwards.
-    Returns (launches summed over the runs, that check's max |diff|)."""
+    on its own counts and held byte for byte against the CPU path. The
+    most crowded band that the positioned runs hand to composite_segments
+    is held against its plain version afterwards. Returns (launches summed
+    over the runs, that check's max |diff|)."""
     from image_stitch_tpu_torch.ops import composite_device
 
     real = composite_device.composite_segments
     seen: list[tuple] = []
 
     def capture(metas, srcs, bg, h, w):
-        if not seen or metas.shape[0] > seen[0][0].shape[0]:
+        if srcs.device.type == dev.type and (not seen or metas.shape[0] > seen[0][0].shape[0]):
             seen[:] = [(metas, srcs, tuple(bg), h, w)]
         return real(metas, srcs, bg, h, w)
 
@@ -406,16 +444,7 @@ def png_main_path(cases: list[tuple[str, dict, float, tuple[str, ...]]],
     composite_device.composite_segments = capture
     try:
         for name, opts, mp, must_launch in cases:
-            out, launches, counters = run_path(name, opts, mp, dev, must_launch)
-            if opts["outputFormat"] == "png" and launches["filter_select"] != counters.png_bands:
-                fail(f"{name}: {launches['filter_select']} filter launches for "
-                     f"{counters.png_bands} bands")
-            if "composite_segments" in must_launch and not counters.composite_bands_on_device:
-                fail(f"{name}: no band was blended on the card")
-            if counters.host_fallback_bands:
-                fail(f"{name}: {counters.host_fallback_bands} bands were coded on the host")
-            same_as_host(out, opts, name)
-            say(f"main path {name}: byte-identical to the numpy host tier")
+            _out, launches, _counters = run_path(name, opts, mp, dev, must_launch)
             add_launches(total, launches)
     finally:
         composite_device.composite_segments = real
@@ -426,30 +455,40 @@ def png_main_path(cases: list[tuple[str, dict, float, tuple[str, ...]]],
     return total, err
 
 
-def png_kernel_timing(dev: torch.device) -> dict:
+def png_kernel_timing(dev: torch.device) -> tuple[dict, dict]:
     """Device time of filter select (8-bit and 16-bit bands) and of
-    compositing (50 segments), kernel against plain version."""
+    compositing (50 segments), kernel against plain version; and the bytes
+    each must move on the 8-bit band and the 50 segments."""
     from image_stitch_tpu_torch.ops import kernels as K
 
     rng = np.random.default_rng(SEED + 2)
     t = {}
     for dtype, bpp, tag in ((np.uint8, 4, "filter8"), (np.uint16, 8, "filter16")):
         band, prev = filter_inputs(rng, dtype, dev)
+        if tag == "filter8":
+            # Read the band and the carry row, write the filtered band and
+            # the row types.
+            filter_moved = 2 * band.nbytes + prev.nbytes + band.shape[0]
         t[f"{tag}_kernel"] = time_cuda(lambda: K.filter_select(band, prev, bpp), reps=50)
+        t[f"{tag}_device"] = device_time(lambda: K.filter_select(band, prev, bpp))
         t[f"{tag}_plain"] = time_cuda(lambda: K.filter_select_plain(band, prev, bpp))
     metas, srcs = (torch.from_numpy(a).to(dev) for a in
                    random_segments(rng, SPRITES, BAND_ROWS, GRID * TILE))
     args = (metas, srcs, (0, 0, 0, 0), BAND_ROWS, GRID * TILE)
     t["composite_kernel"] = time_cuda(lambda: K.composite_segments(*args), reps=50)
+    t["composite_device"] = device_time(lambda: K.composite_segments(*args))
     t["composite_plain"] = time_cuda(lambda: K.composite_segments_plain(*args))
-    return t
+    return t, {"filter_select": filter_moved,
+               "composite_segments": metas.nbytes + srcs.nbytes + BAND_ROWS * GRID * TILE * 4 + 4}
 
 
-def band_timing(tiles: list[np.ndarray], dev: torch.device) -> tuple[dict, dict]:
+def band_timing(tiles: list[np.ndarray], dev: torch.device) -> tuple[dict, dict, dict]:
     """Per-stage device time of one 256 x 8192 4:4:4 restart band (32
-    groups of one MCU row), kernel path against plain path; and max
-    |kernel - plain| per kernel on that band (each must be 0)."""
-    from image_stitch_tpu.codecs.jpeg.tables import quality_scaled_tables
+    groups of one MCU row), kernel path against plain path; pack_merge
+    against its plain version and against ``index_add_`` of the same words.
+    Returns (times, max |kernel - plain| on that band, pack_merge's bytes
+    moved)."""
+    from image_stitch_tpu_torch.codecs.jpeg import tables as T
     from image_stitch_tpu_torch.codecs.jpeg.encoder import local_words_for_quality
     from image_stitch_tpu_torch.ops import jpeg_entropy_device as E
     from image_stitch_tpu_torch.ops import kernels as K
@@ -458,8 +497,11 @@ def band_timing(tiles: list[np.ndarray], dev: torch.device) -> tuple[dict, dict]
     lw = local_words_for_quality(QUALITY)
     band_np = np.concatenate([tiles[c][:BAND_ROWS, :, :3] for c in range(GRID)], axis=1)
     band = torch.from_numpy(np.ascontiguousarray(band_np)).to(dev)
-    lq, cq = (torch.from_numpy(q).to(dev) for q in quality_scaled_tables(QUALITY))
-    luts = E.build_entropy_luts(*_huffman_tables(), dev)
+    lq, cq = (torch.from_numpy(q).to(dev) for q in T.quality_scaled_tables(QUALITY))
+    huffman = [T.build_huffman_codes(bits, vals) for bits, vals in (
+        (T.STD_DC_LUMA_BITS, T.STD_DC_LUMA_VALS), (T.STD_AC_LUMA_BITS, T.STD_AC_LUMA_VALS),
+        (T.STD_DC_CHROMA_BITS, T.STD_DC_CHROMA_VALS), (T.STD_AC_CHROMA_BITS, T.STD_AC_CHROMA_VALS))]
+    luts = E.build_entropy_luts(*huffman, dev)
     n_groups = BAND_ROWS // 8
 
     blocks = jpeg_quantize(band, lq, cq)
@@ -470,18 +512,29 @@ def band_timing(tiles: list[np.ndarray], dev: torch.device) -> tuple[dict, dict]
     cap_words = max(64, -(-need_per_group // 256) * 256)
     n_words = n_groups * cap_words
 
-    local_k = K.pack_blocks_aligned(codes, lens, starts, lw)
-    local_p = K.pack_blocks_aligned_plain(codes, lens, starts, lw)
-    dense_k = K.merge_or(local_k, starts, n_words)
-    dense_p = K.merge_or_plain(local_p, starts, n_words)
+    dense_k = K.pack_merge(codes, lens, starts, lw, n_words)
+    dense_p = K.pack_merge_plain(codes, lens, starts, lw, n_words)
+    # index_add_ of the same (nb, n_aw) words: the one PyTorch call that
+    # computes the merge (ADD equals OR on disjoint bit ranges).
+    local = K.pack_blocks_aligned_plain(codes, lens, starts, lw)
+    idx = ((starts.to(torch.int64) >> 5)[:, None]
+           + torch.arange(lw + 2, device=dev)[None, :]).reshape(-1)
+    vals = local.reshape(-1)
+    keep = idx < n_words
+    idx, vals = idx[keep].contiguous(), vals[keep].contiguous()
+    dense_l = torch.zeros(n_words, dtype=torch.int32, device=dev)
+    dense_l.index_add_(0, idx, vals)
     torch.cuda.synchronize()
-    err_pack = int((as_u32(local_k) - as_u32(local_p)).abs().max())
-    err_merge = int((as_u32(dense_k) - as_u32(dense_p)).abs().max())
-    if err_pack or err_merge:
-        fail(f"real band: kernel != plain (pack {err_pack}, merge {err_merge})")
+    err = max_err(as_u32(dense_k), as_u32(dense_p))
+    if err:
+        fail(f"real band: pack_merge != plain, max |diff| {err}")
+    if max_err(as_u32(dense_l), as_u32(dense_p)):
+        fail("real band: index_add_ of the packed words != the plain merge")
     bits = int(group_bits.sum())
-    say(f"kernels == plain on a real band: nb={codes.shape[0]}, AW={lw + 2}, "
-        f"{bits} bits = {bits / band_np.shape[0] / band_np.shape[1]:.3f} bits/px")
+    moved = codes.nbytes + lens.nbytes + starts.nbytes + 4 * n_words
+    say(f"pack_merge == plain == index_add_ on a real band: nb={codes.shape[0]}, AW={lw + 2}, "
+        f"{bits} bits = {bits / band_np.shape[0] / band_np.shape[1]:.3f} bits/px, "
+        f"{n_words} dense words, {moved} B to move")
 
     def kernel_path():
         b = jpeg_quantize(band, lq, cq)
@@ -491,72 +544,56 @@ def band_timing(tiles: list[np.ndarray], dev: torch.device) -> tuple[dict, dict]
         b = jpeg_quantize(band, lq, cq)
         c, ln = E._symbol_streams_flat(*b, luts, n_groups)
         s, _, _ = E._group_layout(ln, n_groups)
-        return K.merge_or_plain(K.pack_blocks_aligned_plain(c, ln, s, lw), s, n_words)
+        return K.pack_merge_plain(c, ln, s, lw, n_words)
 
     t = {
         "quantize": time_cuda(lambda: jpeg_quantize(band, lq, cq)),
         "symbols": time_cuda(lambda: E._symbol_streams_flat(*blocks, luts, n_groups)),
         "layout": time_cuda(lambda: E._group_layout(lens, n_groups)),
-        "pack_kernel": time_cuda(lambda: K.pack_blocks_aligned(codes, lens, starts, lw), reps=50),
-        "pack_plain": time_cuda(lambda: K.pack_blocks_aligned_plain(codes, lens, starts, lw)),
-        "merge_kernel": time_cuda(lambda: K.merge_or(local_k, starts, n_words), reps=50),
-        "merge_plain": time_cuda(lambda: K.merge_or_plain(local_p, starts, n_words)),
+        "pack_merge_kernel": time_cuda(
+            lambda: K.pack_merge(codes, lens, starts, lw, n_words), reps=50),
+        "pack_merge_device": device_time(lambda: K.pack_merge(codes, lens, starts, lw, n_words)),
+        "pack_merge_plain": time_cuda(
+            lambda: K.pack_merge_plain(codes, lens, starts, lw, n_words)),
+        "index_add_library": time_cuda(lambda: dense_l.index_add_(0, idx, vals), reps=50),
+        "index_add_device": device_time(lambda: dense_l.index_add_(0, idx, vals)),
         "band_kernel_path": time_cuda(kernel_path),
         "band_plain_path": time_cuda(plain_path),
     }
-    return t, {"pack_blocks_aligned": err_pack, "merge_or": err_merge}
+    return t, {"pack_merge": err}, {"pack_merge": moved}
 
 
-def _huffman_tables():
-    from image_stitch_tpu.codecs.jpeg.tables import (
-        STD_AC_CHROMA_BITS, STD_AC_CHROMA_VALS, STD_AC_LUMA_BITS, STD_AC_LUMA_VALS,
-        STD_DC_CHROMA_BITS, STD_DC_CHROMA_VALS, STD_DC_LUMA_BITS, STD_DC_LUMA_VALS,
-        build_huffman_codes,
-    )
-
-    return (
-        build_huffman_codes(STD_DC_LUMA_BITS, STD_DC_LUMA_VALS),
-        build_huffman_codes(STD_AC_LUMA_BITS, STD_AC_LUMA_VALS),
-        build_huffman_codes(STD_DC_CHROMA_BITS, STD_DC_CHROMA_VALS),
-        build_huffman_codes(STD_AC_CHROMA_BITS, STD_AC_CHROMA_VALS),
-    )
-
-
-def e2e_rates(opts: dict, megapixels: float, dev: torch.device) -> dict:
-    """End-to-end MP/s of ``opts``, torch path and numpy host tier in turns
-    (torch, host, host, torch)."""
-    import image_stitch_tpu
+def e2e_rates(opts: dict, megapixels: float, dev: torch.device) -> list[float]:
+    """End-to-end MP/s of two torch-path runs of ``opts``."""
     import image_stitch_tpu_torch
 
-    rates = {"torch": [], "host": []}
-    for which in ("torch", "host", "host", "torch"):
+    rates = []
+    for _ in range(2):
         t0 = time.perf_counter()
-        if which == "torch":
-            image_stitch_tpu_torch.concat_to_buffer(opts, device=dev)
-        else:
-            image_stitch_tpu.concat_to_buffer({**opts, "backend": "numpy"})
-        rates[which].append(megapixels / (time.perf_counter() - t0))
+        image_stitch_tpu_torch.concat_to_buffer(opts, device=dev)
+        rates.append(megapixels / (time.perf_counter() - t0))
     return rates
 
 
 def host_assembly_rate(tiles_png: list[bytes]) -> float:
     """MP/s of the host layers alone (PNG decode, layout, band assembly) on
-    the grid, with no encode: the ceiling of either end-to-end path."""
-    from image_stitch_tpu.core import CoreStreamingConcatenator
+    the grid, with no encode: the ceiling of the end-to-end paths."""
+    from image_stitch_tpu_torch import TorchStreamingConcatenator
 
     opts = {
         "inputs": tiles_png, "layout": {"columns": GRID}, "outputFormat": "jpeg",
-        "bandHeight": BAND_ROWS, "backend": "numpy",
+        "bandHeight": BAND_ROWS,
     }
     t0 = time.perf_counter()
-    px = sum(b.shape[0] * b.shape[1] for b in CoreStreamingConcatenator(opts).stream_bands())
+    bands = TorchStreamingConcatenator(opts, device="cpu").stream_bands()
+    px = sum(b.shape[0] * b.shape[1] for b in bands)
     return px / 1e6 / (time.perf_counter() - t0)
 
 
 def host_deflate_rate(tiles: list[np.ndarray], dev: torch.device) -> float:
     """MP/s of the host's streaming deflate alone (level 6, as the PNG
     encoder runs it) over one grid band's filtered rows, pushed four times."""
-    from image_stitch_tpu.io.deflate import StreamingDeflator
+    from image_stitch_tpu_torch.io.deflate import StreamingDeflator
     from image_stitch_tpu_torch.ops.device import TorchBackend
 
     band = np.concatenate([tiles[c][:BAND_ROWS] for c in range(GRID)], axis=1)
@@ -589,6 +626,12 @@ def device_profile(opts: dict, dev: torch.device) -> dict:
             "activities": sum(r[2] for r in rows), "top": rows[:8]}
 
 
+def bound_ms(n_bytes: int) -> float:
+    """Least time the card could take to move ``n_bytes`` (each input read
+    once, each output written once) at the H100's 3.35 TB/s."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA GPU")
@@ -605,20 +648,20 @@ def main() -> None:
     say(card)
     kind = torch.cuda.get_device_name(0)
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}, "
-        f"count {torch.cuda.device_count()}, python {sys.version.split()[0]}")
+        f"count {torch.cuda.device_count()}, python {sys.version.split()[0]}, "
+        f"{torch.get_num_threads()} CPU threads")
 
     # 2. Build.
     from image_stitch_tpu_torch._build import load_cuda_kernels
-
-    from image_stitch_tpu.native import get_native_lib
+    from image_stitch_tpu_torch.native import get_native_lib
 
     t0 = time.perf_counter()
     load_cuda_kernels()
     say(f"build: nvcc sm_90a kernels loaded in {time.perf_counter() - t0:.2f} s (set-up)")
     t0 = time.perf_counter()
     if get_native_lib() is None:
-        fail("the host tier's C++ library (image_stitch_tpu/native) did not build")
-    say(f"build: host tier C++ library loaded in {time.perf_counter() - t0:.2f} s (set-up)")
+        fail("the port's host C++ library (image_stitch_tpu_torch/native) did not build")
+    say(f"build: the port's host C++ library loaded in {time.perf_counter() - t0:.2f} s (set-up)")
 
     # 3. Kernels against their plain versions at the main paths' shapes.
     errs = check_kernels(dev)
@@ -629,49 +672,56 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     tiles = [photo_tile(rng, TILE) for _ in range(GRID * GRID)]
     tiles_png = [png_bytes(t) for t in tiles]
-    tiles16_png = [png_bytes(photo_tile16(rng, TILE)) for _ in range(GRID16 * GRID16)]
+    tiles16_png = [png_bytes(photo_tile16(rng, TILE)) for _ in range(SMALL * SMALL)]
     sprites = positioned_inputs(rng)
     say(f"inputs: {GRID}x{GRID} grid of {TILE}x{TILE} RGBA PNG tiles, "
-        f"{sum(map(len, tiles_png)) / 1e6:.1f} MB; {GRID16}x{GRID16} RGBA16 tiles, "
+        f"{sum(map(len, tiles_png)) / 1e6:.1f} MB; {SMALL}x{SMALL} RGBA16 tiles, "
         f"{sum(map(len, tiles16_png)) / 1e6:.1f} MB; {SIDE}x{SIDE} background + {SPRITES} "
         f"sprites; made in {time.perf_counter() - t0:.2f} s")
-    launches = main_path(tiles_png, dev, [(1, "444"), (0, "444"), (1, "420")])
+    grid_jpeg = {"inputs": tiles_png, "layout": {"columns": GRID}, "outputFormat": "jpeg",
+                 "jpegQuality": QUALITY, "bandHeight": BAND_ROWS, "jpegRestartIntervalRows": 1}
+    small_jpeg = {**grid_jpeg, "inputs": tiles_png[:SMALL] + tiles_png[GRID:GRID + SMALL],
+                  "layout": {"columns": SMALL}}
     grid_png = {"inputs": tiles_png, "layout": {"columns": GRID}, "outputFormat": "png",
                 "pngCompressionLevel": 6, "bandHeight": BAND_ROWS}
-    grid16_png = {**grid_png, "inputs": tiles16_png, "layout": {"columns": GRID16}}
+    small_png16 = {**grid_png, "inputs": tiles16_png, "layout": {"columns": SMALL}}
     positioned = {"inputs": sprites, "layout": {"width": SIDE, "height": SIDE},
                   "outputFormat": "png", "bandHeight": BAND_ROWS}
     mp_grid, mp_side = GRID * GRID * TILE * TILE / 1e6, SIDE * SIDE / 1e6
-    png_launches, comp_err = png_main_path([
+    mp_small = SMALL * SMALL * TILE * TILE / 1e6
+    launches, comp_err = main_paths([
+        (f"grid -> JPEG ri=1 444 q{QUALITY}", grid_jpeg, mp_grid, ("pack_merge",)),
+        (f"2x2 grid -> JPEG ri=0 444 q{QUALITY}", {**small_jpeg, "jpegRestartIntervalRows": 0},
+         mp_small, ("pack_merge",)),
+        (f"2x2 grid -> JPEG ri=1 420 q{QUALITY}", {**small_jpeg, "jpegSampling": "420"},
+         mp_small, ("pack_merge",)),
         ("grid -> PNG 8-bit level 6", grid_png, mp_grid, ("filter_select",)),
-        ("grid -> PNG 16-bit level 6", grid16_png, GRID16 * GRID16 * TILE * TILE / 1e6,
-         ("filter_select",)),
+        ("2x2 grid -> PNG 16-bit level 6", small_png16, mp_small, ("filter_select",)),
         ("positioned -> PNG", positioned, mp_side, ("composite_segments", "filter_select")),
         (f"positioned -> JPEG q{QUALITY}",
          {**positioned, "outputFormat": "jpeg", "jpegQuality": QUALITY}, mp_side,
-         ("composite_segments", "pack_blocks_aligned", "merge_or")),
+         ("composite_segments", "pack_merge")),
     ], dev)
-    add_launches(launches, png_launches)
     errs["composite_segments"] = max(errs["composite_segments"], comp_err)
     say(f"main path launches, summed over the runs: {launches}")
 
     # 5. Timing.
-    t, band_errs = band_timing(tiles, dev)
+    t, band_errs, moved = band_timing(tiles, dev)
     errs = {k: max(v, band_errs.get(k, 0)) for k, v in errs.items()}
     for name, v in t.items():
         say(f"band 256x8192 444 ri=1 q{QUALITY} {name}: {fmt(v)} [{card}]")
-    t.update(png_kernel_timing(dev))
+    pt, png_moved = png_kernel_timing(dev)
+    t.update(pt)
+    moved.update(png_moved)
     for name, what in (("filter8", "RGBA8 band 256x32768 B"), ("filter16", "RGBA16 band 256x65536 B"),
                        ("composite", f"{SPRITES} segments into 256x8192")):
-        for which in ("kernel", "plain"):
+        for which in ("kernel", "device", "plain"):
             say(f"{name}_{which} ({what}): {fmt(t[f'{name}_{which}'])} [{card}]")
-    grid_jpeg = {"inputs": tiles_png, "layout": {"columns": GRID}, "outputFormat": "jpeg",
-                 "jpegQuality": QUALITY, "bandHeight": BAND_ROWS, "jpegRestartIntervalRows": 1}
     for name, opts, mp in ((f"grid_jpeg 67.1 MP ri=1 q{QUALITY}", grid_jpeg, mp_grid),
                            ("grid_png 67.1 MP level 6", grid_png, mp_grid),
                            (f"positioned_png {mp_side:.1f} MP", positioned, mp_side)):
-        for which, r in e2e_rates(opts, mp, dev).items():
-            say(f"e2e {name} {which}: {', '.join(f'{x:.2f}' for x in r)} MP/s [{card}]")
+        r = e2e_rates(opts, mp, dev)
+        say(f"e2e {name} torch: {', '.join(f'{x:.2f}' for x in r)} MP/s [{card}]")
     say(f"host decode + assembly alone (no encode): {host_assembly_rate(tiles_png):.2f} MP/s "
         f"[{card}]")
     say(f"host deflate alone (level 6, filtered rows): {host_deflate_rate(tiles, dev):.2f} MP/s "
@@ -686,32 +736,37 @@ def main() -> None:
         for key, ms, count in p["top"]:
             say(f"  device {ms:9.3f} ms  x{count:<6d} {key[:100]}")
 
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("image_stitch_tpu", "jax"))
+    if foreign:
+        fail(f"modules of the JAX package or jax were loaded: {foreign}")
     kernels = [
-        {"name": "pack_blocks_aligned", "route": "cuda",
-         "source": "image_stitch_tpu_torch/csrc/pack.cu",
-         "replaces": "image_stitch_tpu/ops/pallas_kernels.py:172",
-         "launches": launches["pack_blocks_aligned"],
-         "max_abs_err": errs["pack_blocks_aligned"],
-         "ms": t["pack_kernel"]["median"], "plain_ms": t["pack_plain"]["median"]},
-        {"name": "merge_or", "route": "cuda",
-         "source": "image_stitch_tpu_torch/csrc/merge.cu",
-         "replaces": "image_stitch_tpu/ops/jpeg_entropy_device.py:934",
-         "launches": launches["merge_or"], "max_abs_err": errs["merge_or"],
-         "ms": t["merge_kernel"]["median"], "plain_ms": t["merge_plain"]["median"]},
+        {"name": "pack_merge", "route": "cuda",
+         "source": "image_stitch_tpu_torch/csrc/pack_merge.cu",
+         "replaces": "image_stitch_tpu/ops/pallas_kernels.py:172 and "
+                     "image_stitch_tpu/ops/jpeg_entropy_device.py:934",
+         "launches": launches["pack_merge"], "max_abs_err": errs["pack_merge"],
+         "ms": t["pack_merge_device"]["median"], "plain_ms": t["pack_merge_plain"]["median"],
+         "bound_ms": bound_ms(moved["pack_merge"]), "bound_by": "bytes",
+         "library_ms": t["index_add_device"]["median"]},
         {"name": "filter_select", "route": "cuda",
          "source": "image_stitch_tpu_torch/csrc/filter.cu",
          "replaces": "image_stitch_tpu/ops/pallas_kernels.py:33",
          "launches": launches["filter_select"], "max_abs_err": errs["filter_select"],
-         "ms": t["filter8_kernel"]["median"], "plain_ms": t["filter8_plain"]["median"]},
+         "ms": t["filter8_device"]["median"], "plain_ms": t["filter8_plain"]["median"],
+         "bound_ms": bound_ms(moved["filter_select"]), "bound_by": "bytes",
+         "library_ms": None},
         {"name": "composite_segments", "route": "cuda",
          "source": "image_stitch_tpu_torch/csrc/composite.cu",
          "replaces": "image_stitch_tpu/ops/composite_device.py:84",
          "launches": launches["composite_segments"],
          "max_abs_err": errs["composite_segments"],
-         "ms": t["composite_kernel"]["median"], "plain_ms": t["composite_plain"]["median"]},
+         "ms": t["composite_device"]["median"], "plain_ms": t["composite_plain"]["median"],
+         "bound_ms": bound_ms(moved["composite_segments"]), "bound_by": "bytes",
+         "library_ms": None},
     ]
+    for k in kernels:
+        say(f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "
+            f"({100 * k['bound_ms'] / k['ms']:.1f}% of it) [{card}]")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -11,6 +11,10 @@ and the command line, and loaded with ``ctypes``.
   ``nvcc`` is missing or the build fails; nothing falls back.
 - :func:`load_host_shim` runs ``g++`` over ``csrc/host_shim.cpp``, a
   serial CPU build of the same per-block bodies. Only the tests load it.
+- :func:`build_native` runs ``g++`` over the host tier's C++ library
+  (``native/stitchnative.cpp``: inflate, defilter, deflate, RGBA expansion,
+  compositing, buffer pool) into ``build/torch_native/<sha>/``; the
+  ``native`` module loads it on first use.
 """
 
 from __future__ import annotations
@@ -24,11 +28,9 @@ import subprocess
 import tempfile
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-BUILD_ROOT = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "build",
-    "torch_kernels",
-)
+_BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build")
+BUILD_ROOT = os.path.join(_BUILD, "torch_kernels")
+NATIVE_ROOT = os.path.join(_BUILD, "torch_native")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -62,16 +64,22 @@ def _find_nvcc() -> str:
     )
 
 
-def _build(name: str, compiler: str, flags: list[str], sources: list[str]) -> str:
-    """Compile ``sources`` into ``<BUILD_ROOT>/<sha>/lib<name>.so`` unless it
-    is there already; return its path. Each source compiles to an object in
-    its own process, all started together; one more call links them."""
+def _build(name: str, compiler: str, flags: list[str], sources: list[str],
+           root: str = BUILD_ROOT, hashed: list[str] | None = None,
+           key: str = "") -> str:
+    """Compile ``sources`` into ``<root>/<name>-<sha>/lib<name>.so`` unless
+    it is there already; return its path. The sha covers the compiler, the
+    flags, ``key`` and the ``hashed`` files (every file of csrc/ unless
+    given). Each source compiles to an object in its own process, all
+    started together; one more call links them."""
     h = hashlib.sha256()
-    h.update(" ".join([os.path.basename(compiler)] + flags).encode())
-    for path in sorted(glob.glob(os.path.join(_CSRC, "*"))):
+    h.update(" ".join([os.path.basename(compiler)] + flags + [key]).encode())
+    if hashed is None:
+        hashed = glob.glob(os.path.join(_CSRC, "*"))
+    for path in sorted(hashed):
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
-    out_dir = os.path.join(BUILD_ROOT, f"{name}-{h.hexdigest()[:16]}")
+    out_dir = os.path.join(root, f"{name}-{h.hexdigest()[:16]}")
     lib_path = os.path.join(out_dir, f"lib{name}.so")
     if os.path.exists(lib_path):
         return lib_path
@@ -123,10 +131,8 @@ def load_cuda_kernels() -> ctypes.CDLL:
     if "cuda" not in _loaded:
         sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
         lib = ctypes.CDLL(_build("torch_kernels", _find_nvcc(), NVCC_FLAGS, sources))
-        lib.pack_blocks_aligned_launch.restype = _I
-        lib.pack_blocks_aligned_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
-        lib.merge_or_launch.restype = _I
-        lib.merge_or_launch.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+        lib.pack_merge_launch.restype = _I
+        lib.pack_merge_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.filter_select_launch.restype = _I
         lib.filter_select_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.composite_segments_launch.restype = _I
@@ -135,19 +141,29 @@ def load_cuda_kernels() -> ctypes.CDLL:
     return _loaded["cuda"]
 
 
+def _gxx() -> str:
+    compiler = shutil.which("g++")
+    if compiler is None:
+        raise KernelBuildError("g++ not found: the host C++ cannot be built")
+    return compiler
+
+
+def build_native(src: str, flags: list[str], key: str) -> str:
+    """Compile the host tier's C++ library ``src`` with g++ into
+    ``build/torch_native/`` (keyed by the source, ``flags`` and ``key``) and
+    return the library's path. Raises :class:`KernelBuildError`."""
+    return _build("stitchnative", _gxx(), flags, [src], root=NATIVE_ROOT,
+                  hashed=[src], key=key)
+
+
 def load_host_shim() -> ctypes.CDLL:
     """Build (once) and load the serial CPU build of the kernel bodies.
     Test-only: the encoder never calls it."""
     if "host" not in _loaded:
-        compiler = shutil.which("g++")
-        if compiler is None:
-            raise KernelBuildError("g++ not found: the host shim cannot be built")
         src = [os.path.join(_CSRC, "host_shim.cpp")]
-        lib = ctypes.CDLL(_build("torch_kernels_host", compiler, GXX_FLAGS, src))
-        lib.pack_blocks_aligned_host.restype = None
-        lib.pack_blocks_aligned_host.argtypes = [_P, _P, _P, _P, _I, _I, _I]
-        lib.merge_or_host.restype = None
-        lib.merge_or_host.argtypes = [_P, _P, _P, _I, _I, _I]
+        lib = ctypes.CDLL(_build("torch_kernels_host", _gxx(), GXX_FLAGS, src))
+        lib.pack_merge_host.restype = None
+        lib.pack_merge_host.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I]
         lib.filter_select_host.restype = None
         lib.filter_select_host.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I]
         lib.composite_segments_host.restype = _I

@@ -16,7 +16,7 @@ from __future__ import annotations
 import os
 from typing import Any, Iterator, Mapping
 
-from image_stitch_tpu.types import ConcatOptions
+from .types import ConcatOptions
 
 from .core import TorchStreamingConcatenator
 from .ops.counters import EncodeCounters

@@ -1,19 +1,49 @@
-"""Streaming JPEG encoder whose band program runs in torch.
+"""Streaming baseline JPEG encoder whose band program runs in torch.
 
 ``TorchStreamingJpegEncoder`` is the JAX package's ``StreamingJpegEncoder``
-(image_stitch_tpu/codecs/jpeg/encoder.py) with the device encoder swapped:
-headers, strip buffering, edge padding, restart-group alignment, the
-in-flight queue (``STITCH_TPU_INFLIGHT``) and ``finish`` are the parent's,
-unchanged. The parent only ever hands it host ``np.ndarray`` bands; the
-torch encoder uploads them itself.
+(image_stitch_tpu/codecs/jpeg/encoder.py) with its fused device path as the
+only path: headers, strip buffering, edge padding, restart-group alignment,
+the in-flight queue (``STITCH_TPU_INFLIGHT``) and ``finish`` are that
+class's, copied; every band goes to ``TorchJpegEncoder`` on ``device``,
+which uploads it itself. Contract preserved from the reference
+(src/jpeg-encoder.ts:96-264):
+- consumes 8-row RGBA MCU strips; SOI + headers are emitted with the first
+  strip so ``header()`` yields nothing (jpeg-encoder.ts:123-152);
+- partial final strips are padded by edge-pixel repetition
+  (jpeg-encoder.ts:155-172);
+- EOI is emitted by ``finish()`` (jpeg-encoder.ts:174-190);
+- dimensions and quality (1-100) validated at construction
+  (jpeg-encoder.ts:108-115);
+- alpha is ignored (RGBA -> YCbCr drops A), like the reference encoder
+  (tests/integration/background-color.test.ts:182-196).
 """
 
 from __future__ import annotations
 
-from image_stitch_tpu.codecs.jpeg.encoder import StreamingJpegEncoder
+import collections
+import os
+from typing import Iterator
 
+import numpy as np
+
+from ...errors import StitchError
 from ...ops.counters import EncodeCounters
 from ...ops.jpeg_entropy_device import TorchJpegEncoder
+from .tables import (
+    STD_AC_CHROMA_BITS,
+    STD_AC_CHROMA_VALS,
+    STD_AC_LUMA_BITS,
+    STD_AC_LUMA_VALS,
+    STD_DC_CHROMA_BITS,
+    STD_DC_CHROMA_VALS,
+    STD_DC_LUMA_BITS,
+    STD_DC_LUMA_VALS,
+    ZIGZAG,
+    build_huffman_codes,
+    quality_scaled_tables,
+)
+
+MCU_HEIGHT = 8
 
 
 def local_words_for_quality(quality: int) -> int:
@@ -27,7 +57,7 @@ def local_words_for_quality(quality: int) -> int:
     return 24
 
 
-class TorchStreamingJpegEncoder(StreamingJpegEncoder):
+class TorchStreamingJpegEncoder:
     """Band-streaming JPEG encoder with quantize and entropy pack on a
     torch ``device``. Output bytes equal the JAX package's for the same
     options."""
@@ -35,10 +65,41 @@ class TorchStreamingJpegEncoder(StreamingJpegEncoder):
     def __init__(self, width: int, height: int, quality: int = 85,
                  sampling: str = "444", restart_interval_rows: int = 0, *,
                  device, counters: EncodeCounters | None = None):
-        super().__init__(
-            width, height, quality, backend="torch", sampling=sampling,
-            restart_interval_rows=restart_interval_rows,
-        )
+        if width < 1 or height < 1:
+            raise StitchError(f"Invalid JPEG dimensions: {width}x{height}")
+        if not (1 <= quality <= 100):
+            raise StitchError("JPEG quality must be between 1 and 100")
+        if sampling not in ("444", "420"):
+            raise StitchError(f"Unsupported JPEG sampling: {sampling}")
+        if restart_interval_rows < 0:
+            raise StitchError("restart_interval_rows must be >= 0")
+        self.width = width
+        self.height = height
+        self.quality = quality
+        self.sampling = sampling
+        # 4:2:0 MCUs are 16x16 px; strips and padding work in MCU heights.
+        self._mcu_h = 16 if sampling == "420" else MCU_HEIGHT
+        self.luma_q, self.chroma_q = quality_scaled_tables(quality)
+        self._dc_luma = build_huffman_codes(STD_DC_LUMA_BITS, STD_DC_LUMA_VALS)
+        self._ac_luma = build_huffman_codes(STD_AC_LUMA_BITS, STD_AC_LUMA_VALS)
+        self._dc_chroma = build_huffman_codes(STD_DC_CHROMA_BITS, STD_DC_CHROMA_VALS)
+        self._ac_chroma = build_huffman_codes(STD_AC_CHROMA_BITS, STD_AC_CHROMA_VALS)
+        # Restart markers every `restart_interval_rows` MCU rows (T.81
+        # B.2.4.4): each group's bitstream is byte-aligned and DC-reset, so
+        # groups entropy-code independently — the unit of parallel encode.
+        self._restart_rows = int(restart_interval_rows)
+        _mcu_px = 16 if sampling == "420" else 8
+        self._mcus_per_row = (width + ((-width) % _mcu_px)) // _mcu_px
+        self._header_emitted = False
+        self._finished = False
+        self._pending: np.ndarray | None = None  # buffered rows < mcu height
+        self._pad_w = (-width) % (16 if sampling == "420" else 8)
+        # Device pipeline depth: submissions in flight before the oldest is
+        # drained. Depth >1 overlaps host decode/assembly of later bands
+        # with the link transfer + device compute of earlier ones (restart
+        # groups carry no inter-band state, so depth is free).
+        self._inflight = collections.deque()
+        self._inflight_depth = max(1, int(os.environ.get("STITCH_TPU_INFLIGHT", "2")))
         self._dev_encoder = TorchJpegEncoder(
             self.luma_q, self.chroma_q,
             self._dc_luma, self._ac_luma, self._dc_chroma, self._ac_chroma,
@@ -48,3 +109,131 @@ class TorchStreamingJpegEncoder(StreamingJpegEncoder):
             local_words=local_words_for_quality(quality),
             counters=counters,
         )
+
+    # ----- headers ------------------------------------------------------ #
+
+    def _header_bytes(self) -> bytes:
+        out = bytearray()
+        out += b"\xff\xd8"  # SOI
+        # APP0 JFIF
+        out += b"\xff\xe0" + (16).to_bytes(2, "big")
+        out += b"JFIF\x00" + bytes([1, 1, 0]) + (1).to_bytes(2, "big") + (1).to_bytes(
+            2, "big"
+        ) + bytes([0, 0])
+        # DQT x2 (zigzag order payload)
+        for tid, q in ((0, self.luma_q), (1, self.chroma_q)):
+            out += b"\xff\xdb" + (67).to_bytes(2, "big") + bytes([tid])
+            out += bytes(int(v) for v in q[ZIGZAG])  # table in zigzag order
+        # SOF0: baseline, 3 components (sampling per self.sampling)
+        out += b"\xff\xc0" + (17).to_bytes(2, "big") + bytes([8])
+        out += self.height.to_bytes(2, "big") + self.width.to_bytes(2, "big")
+        out += bytes([3])
+        y_hv = 0x22 if self.sampling == "420" else 0x11
+        out += bytes([1, y_hv, 0])  # Y
+        out += bytes([2, 0x11, 1])  # Cb
+        out += bytes([3, 0x11, 1])  # Cr
+        # DHT x4
+        for tc_th, bits, vals in (
+            (0x00, STD_DC_LUMA_BITS, STD_DC_LUMA_VALS),
+            (0x10, STD_AC_LUMA_BITS, STD_AC_LUMA_VALS),
+            (0x01, STD_DC_CHROMA_BITS, STD_DC_CHROMA_VALS),
+            (0x11, STD_AC_CHROMA_BITS, STD_AC_CHROMA_VALS),
+        ):
+            payload = bytes([tc_th]) + bytes(bits[1:17]) + bytes(vals)
+            out += b"\xff\xc4" + (2 + len(payload)).to_bytes(2, "big") + payload
+        # DRI (restart interval in MCUs, T.81 B.2.4.4)
+        if self._restart_rows:
+            dri = self._restart_rows * self._mcus_per_row
+            if dri > 0xFFFF:
+                raise StitchError(
+                    f"Restart interval {dri} MCUs exceeds the 16-bit DRI "
+                    f"field; lower jpeg_restart_interval_rows"
+                )
+            out += b"\xff\xdd" + (4).to_bytes(2, "big") + dri.to_bytes(2, "big")
+        # SOS
+        out += b"\xff\xda" + (12).to_bytes(2, "big") + bytes([3])
+        out += bytes([1, 0x00, 2, 0x11, 3, 0x11])
+        out += bytes([0, 63, 0])
+        return bytes(out)
+
+    def header(self) -> Iterator[bytes]:
+        """Yields nothing: SOI+headers ride the first strip, matching the
+        reference's WASM behavior (jpeg-encoder.ts:123-152)."""
+        return iter(())
+
+    # ----- strips ------------------------------------------------------- #
+
+    def encode_band(self, band: np.ndarray) -> Iterator[bytes]:
+        """Consume an (h, W, 4) uint8 host band; yields encoded bytes."""
+        if self._finished:
+            raise StitchError("JPEG encoder already finished")
+        band = np.asarray(band, dtype=np.uint8)
+        if band.shape[1] != self.width:
+            raise StitchError(
+                f"Band width {band.shape[1]} != encoder width {self.width}"
+            )
+        if not self._header_emitted:
+            self._header_emitted = True
+            yield self._header_bytes()
+        if self._pending is not None:
+            band = np.concatenate([self._pending, band], axis=0)
+            self._pending = None
+        # With restarts, submit whole restart groups only (groups pack
+        # independently on device; a shorter group is legal only as the
+        # image tail, handled in finish()).
+        unit = self._mcu_h
+        if self._restart_rows:
+            unit = self._restart_rows * self._mcu_h
+        n_units = band.shape[0] // unit
+        n_full = n_units * (unit // self._mcu_h)
+        if n_full:
+            full = band[: n_full * self._mcu_h]
+            # One-band lookahead: submit this band (device computes + packs
+            # bits), emit the previous band's bytes meanwhile.
+            if self._pad_w:
+                full = np.concatenate(
+                    [full, np.repeat(full[:, -1:], self._pad_w, axis=1)], axis=1
+                )
+            self._inflight.append(self._dev_encoder.submit(full))
+            while len(self._inflight) > self._inflight_depth:
+                data = self._dev_encoder.wait(self._inflight.popleft())
+                if data:
+                    yield data
+        rest = band[n_full * self._mcu_h :]
+        if rest.shape[0]:
+            self._pending = rest.copy()
+
+    def finish(self) -> Iterator[bytes]:
+        """Pad any partial final strip with edge-row repetition, flush bits,
+        emit EOI (jpeg-encoder.ts:157-190)."""
+        if self._finished:
+            return
+        self._finished = True
+        out = bytearray()
+        if not self._header_emitted:
+            self._header_emitted = True
+            out += self._header_bytes()
+        part = None
+        if self._pending is not None and self._pending.shape[0]:
+            part = self._pending
+            self._pending = None
+            # Pending may exceed one MCU strip in restart mode (group-aligned
+            # holdback); pad to the next MCU-height multiple.
+            pad_rows = (-part.shape[0]) % self._mcu_h
+            if pad_rows:
+                part = np.concatenate(
+                    [part, np.repeat(part[-1:], pad_rows, axis=0)], axis=0
+                )
+        # Drain the device pipeline; the padded partial strip goes through
+        # the same device path so the carry chain stays on device.
+        if part is not None:
+            if self._pad_w:
+                part = np.concatenate(
+                    [part, np.repeat(part[:, -1:], self._pad_w, axis=1)], axis=1
+                )
+            self._inflight.append(self._dev_encoder.submit(part))
+        while self._inflight:
+            out += self._dev_encoder.wait(self._inflight.popleft())
+        out += self._dev_encoder.flush()
+        out += b"\xff\xd9"  # EOI
+        yield bytes(out)

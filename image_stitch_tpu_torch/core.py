@@ -1,37 +1,75 @@
-"""Band-streaming concatenator whose per-band device work runs in torch.
+"""The streaming orchestrator (L6) — band-at-a-time canvas assembly, with
+the per-band device work in torch.
 
-``TorchStreamingConcatenator`` is the JAX package's
-``CoreStreamingConcatenator`` with its device hooks overridden: decoding,
-layout and band assembly stay the parent's host code (the ``numpy`` route,
-as with the JAX package's numpy backend); each assembled band goes to a
+A copy of ``image_stitch_tpu/core.py`` whose encode and positioned
+compositing stages run on a torch ``device``: each assembled band goes to a
 ``TorchStreamingJpegEncoder`` or, for PNG output, to ``TorchBackend``'s
-filter select on ``device``; positioned 8-bit bands with alpha blending
-composite on ``device`` (``DeviceCompositor``).
+filter select; positioned 8-bit bands with alpha blending composite on the
+device (``DeviceCompositor``). The JAX package's backend resolution, mesh
+and grid device-decode fast path are not part of the copy.
+
+Counterpart of the reference's ``CoreStreamingConcatenator``
+(src/image-concat-core.ts:279-1473), redesigned TPU-first: where the
+reference pulls one scanline per image per output row through per-pixel JS
+loops (generateFilteredScanlines, :389-549), this engine assembles whole
+*row bands* — (band_height, W, 4) canvases — with vectorized conversion,
+placement and compositing, then runs PNG filter-selection or JPEG DCT over
+the full band on the accelerator and streams encoded bytes from the host.
+
+The memory contract is the reference's O(canvas_width) guarantee with a
+constant band factor: peak live pixels = O(W * band_height), independent of
+canvas height (reference contract: src/image-concat-core.ts:263-277).
+
+Two-pass structure preserved (stream(): pass 1 headers, pass 2 pixels,
+reference :927-1003), including:
+- grid/positioned mode split + mixing validation (:951-955)
+- common format: RGBA, 16-bit iff any input 16-bit; JPEG forces 8-bit
+  (:1022-1027, pixel-ops.ts:293-307)
+- per-input progress callback firing as each input's rows are exhausted
+  (:1401-1428)
+- dimension-mismatch diagnostics naming input/row/column (:429-474)
 """
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Any, Iterator, Mapping, Sequence
+from typing import Any, Callable, Iterator, Mapping, Sequence
 
 import numpy as np
 import torch
 
-from image_stitch_tpu.codecs.png.writer import (
-    create_idat, create_iend, create_ihdr, serialize_chunk,
+from .codecs.factory import (
+    create_decoders,
+    extract_positions,
+    has_positioned_images,
+    validate_positioned_inputs,
 )
-from image_stitch_tpu.core import CoreStreamingConcatenator, RowSource
-from image_stitch_tpu.errors import StitchError
-from image_stitch_tpu.io.deflate import StreamingDeflator
-from image_stitch_tpu.layout.positioned import build_band_plan
-from image_stitch_tpu.ops.pixel import background_pixel, composite_band
-from image_stitch_tpu.types import ConcatOptions, PngHeader
-from image_stitch_tpu.utils import PNG_SIGNATURE, trim_malloc
-
+from .codecs.png.writer import create_idat, create_iend, create_ihdr, serialize_chunk
 from .codecs.jpeg.encoder import TorchStreamingJpegEncoder
+from .codecs.registry import get_default_decoder_plugins
+from .errors import StitchError, format_pixels
+from .io.deflate import StreamingDeflator
+from .layout.grid import GridLayout, calculate_layout
+from .layout.positioned import (
+    build_band_plan,
+    calculate_canvas_size,
+    clip_images_to_canvas,
+)
 from .ops.composite_device import DeviceCompositor
-from .ops.device import TorchBackend
 from .ops.counters import EncodeCounters
+from .ops.device import TorchBackend
+from .ops.pixel import (
+    background_pixel,
+    composite_band,
+    convert_band,
+    determine_common_format,
+)
+from .types import (
+    ConcatOptions,
+    ImageHeader,
+    PngHeader,
+    image_header_to_png_header,
+)
+from .utils import PNG_SIGNATURE, scanline_byte_length
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -52,40 +90,650 @@ def _to_host(band: np.ndarray | torch.Tensor) -> np.ndarray:
     return band.cpu().numpy() if isinstance(band, torch.Tensor) else band
 
 
-class TorchStreamingConcatenator(CoreStreamingConcatenator):
-    """Concatenate to PNG or JPEG with the band work on a torch device.
+class ProgressTracker:
+    """Fires on_progress(completed, total) as inputs finish streaming
+    (reference: createProgressTracker, image-concat-core.ts:1401-1428)."""
+
+    def __init__(self, headers: Sequence[PngHeader], callback: Callable[[int, int], None]):
+        import threading
+
+        self.remaining = [h.height for h in headers]
+        self.total = len(headers)
+        self.completed = 0
+        self.callback = callback
+        # host_threads decode workers call consumed() concurrently; the
+        # read-modify-write on remaining/completed needs the lock.
+        self._lock = threading.Lock()
+        # Callbacks deliver under their own lock, in completed order, so
+        # user code never sees (2, total) before (1, total) and need not be
+        # thread-safe even with host_threads > 1.
+        self._cb_lock = threading.Lock()
+        self._cb_next = 0  # next `completed` value to deliver
+        # Reentrancy guard: a callback that drives the tracker again (e.g.
+        # pulls more rows -> consumed() -> _deliver()) must not re-enter
+        # delivery on its own thread — the non-reentrant _cb_lock would
+        # self-deadlock. The outer delivery loop re-reads `completed` after
+        # each callback, so skipped reentrant deliveries are picked up.
+        self._delivering = threading.local()
+        # Zero-height inputs complete immediately (reference :1417-1425).
+        for i, h in enumerate(headers):
+            if h.height == 0:
+                self.completed += 1
+        if self.completed:
+            self.callback(self.completed, self.total)
+        self._cb_next = self.completed
+
+    def consumed(self, image_idx: int, n_rows: int) -> None:
+        with self._lock:
+            if self.remaining[image_idx] <= 0:
+                return
+            self.remaining[image_idx] -= n_rows
+            if self.remaining[image_idx] > 0:
+                return
+            self.remaining[image_idx] = 0
+            self.completed += 1
+        self._deliver()
+
+    def _deliver(self) -> None:
+        """Deliver pending callbacks serially and in increasing order."""
+        if getattr(self._delivering, "active", False):
+            return  # reentrant from our own callback; outer loop re-checks
+        self._delivering.active = True
+        try:
+            while True:
+                with self._cb_lock:
+                    with self._lock:
+                        if self._cb_next >= self.completed:
+                            return
+                        self._cb_next += 1
+                        value = self._cb_next
+                    self.callback(value, self.total)
+        finally:
+            self._delivering.active = False
+
+
+class RowSource:
+    """Streams converted RGBA rows from one decoder with band buffering.
+
+    Pulls raw bands from the decoder, validates their byte width (the
+    reference's per-row checks, image-concat-core.ts:437-447), converts to
+    the common RGBA format, and serves arbitrary row ranges to the canvas
+    assembler.
+    """
+
+    def __init__(
+        self,
+        image_idx: int,
+        decoder,
+        header: PngHeader,
+        metadata: Mapping[str, Any],
+        target_bit_depth: int,
+        band_height: int,
+        progress: ProgressTracker | None = None,
+        group_provider=None,
+    ):
+        self.image_idx = image_idx
+        self.header = header
+        self._meta = metadata
+        self._target_depth = target_bit_depth
+        # Batched small-tile decode (codecs/png/group_decode): a lazy
+        # provider for this tile's fully converted array. The normal
+        # band iterator below is created but NOT started (generators run
+        # on first next()), so a failed group decode falls back to it
+        # with per-input error attribution intact.
+        self._group_provider = group_provider
+        self._decoder = decoder
+        self._band_height = band_height
+        # The band iterator is created lazily for grouped tiles (the
+        # group path normally never touches it); generators only run on
+        # first next(), so the fallback semantics are identical.
+        self._iter = None
+        if group_provider is None:
+            self._make_iter()
+        # Decoders that guarantee each yielded band is a fresh (or never
+        # mutated) array set ``bands_are_owned``; for those the RGBA8
+        # identity conversion may alias the band instead of copying.
+        # Injected custom decoders default to the safe copying path — they
+        # may legally reuse a scratch buffer between yields.
+        self._bands_owned = bool(getattr(decoder, "bands_are_owned", False))
+        self._expected_row_bytes = scanline_byte_length(
+            header.width, header.bit_depth, header.color_type
+        )
+        self._buf: np.ndarray | None = None  # converted rows not yet served
+        self.rows_served = 0
+        self._progress = progress
+        self._context: tuple[int, int] | None = None  # (grid_row, grid_col) 1-based
+
+    def _make_iter(self) -> None:
+        decoder, band_height = self._decoder, self._band_height
+        self._iter = decoder.bands(band_height) if hasattr(decoder, "bands") else None
+        if self._iter is None:
+            self._iter = _bands_from_rows(decoder.scanlines(), band_height)
+
+    def set_context(self, grid_row: int, grid_col: int) -> None:
+        self._context = (grid_row, grid_col)
+
+    def _where(self) -> str:
+        if self._context:
+            return (
+                f"while assembling row {self._context[0]}, column {self._context[1]}"
+            )
+        return f"at source row {self.rows_served + 1}"
+
+    def _pull(self) -> bool:
+        if self._group_provider is not None:
+            provider, self._group_provider = self._group_provider, None
+            converted = provider()
+            if converted is not None:
+                self._buf = (
+                    converted
+                    if self._buf is None
+                    else np.vstack([self._buf, converted])
+                )
+                return True
+            # Group decode failed: fall back to the per-tile path (the
+            # group never touches decoder state, so it starts clean and
+            # re-raises with proper per-input error attribution).
+        if self._iter is None:
+            self._make_iter()
+        try:
+            raw = next(self._iter)
+        except StopIteration:
+            return False
+        except StitchError as exc:
+            # Surface decoder failures with input context (reference error
+            # style: image-concat-core.ts:429-447).
+            raise StitchError(
+                f"decode failed for input #{self.image_idx + 1} {self._where()}", exc
+            ) from exc
+        raw = np.atleast_2d(np.asarray(raw, dtype=np.uint8))
+        if raw.shape[1] != self._expected_row_bytes:
+            bits_per_pixel = (
+                self.header.bit_depth
+                * (self._expected_row_bytes * 8 // max(1, self.header.width * self.header.bit_depth))
+            )
+            actual_w = (
+                raw.shape[1] * 8 * self.header.width / (self._expected_row_bytes * 8)
+                if self._expected_row_bytes
+                else 0
+            )
+            raise StitchError(
+                f"dimension mismatch for input #{self.image_idx + 1} {self._where()}. "
+                f"Expected {format_pixels(self.header.width)} wide scanline "
+                f"({self._expected_row_bytes} raw bytes) but decoder produced "
+                f"{format_pixels(actual_w)} ({raw.shape[1]} raw bytes)."
+            )
+        try:
+            # copy=False (owned bands only): ``raw`` is a freshly
+            # defiltered band and every take() consumer copies into a
+            # canvas — the RGBA8 identity conversion can be a view.
+            converted = convert_band(
+                raw,
+                self.header.width,
+                self.header.bit_depth,
+                self.header.color_type,
+                self._target_depth,
+                palette=self._meta.get("palette"),
+                trns=self._meta.get("trns"),
+                copy=not self._bands_owned,
+            )
+        except StitchError:
+            raise
+        except Exception as exc:  # pragma: no cover - defensive
+            raise StitchError(
+                f"unable to normalize input #{self.image_idx + 1} {self._where()}", exc
+            ) from exc
+        self._buf = converted if self._buf is None else np.vstack([self._buf, converted])
+        return True
+
+    def take(self, n: int) -> np.ndarray:
+        """Return the next ``n`` converted rows as (n, W, 4)."""
+        while self._buf is None or self._buf.shape[0] < n:
+            if not self._pull():
+                produced = self.rows_served + (0 if self._buf is None else self._buf.shape[0])
+                raise StitchError(
+                    f"dimension mismatch for input #{self.image_idx + 1} {self._where()}. "
+                    f"Expected {format_pixels(self.header.height)} tall image but "
+                    f"decoder ended after {format_pixels(produced)}."
+                )
+        out = self._buf[:n]
+        self._buf = self._buf[n:] if self._buf.shape[0] > n else None
+        self.rows_served += n
+        if self.rows_served >= self.header.height and self._buf is None:
+            # The decoder generator is suspended just after its last yield;
+            # close it now so its frame (inflate state, scratch, pending
+            # input) is released immediately instead of at stream end — with
+            # many inputs that retained ~0.5 MB per finished tile.
+            close = getattr(self._iter, "close", None)
+            if close is not None:
+                close()
+        if self._progress is not None:
+            self._progress.consumed(self.image_idx, n)
+        return out
+
+    def skip(self, n: int) -> None:
+        """Discard ``n`` rows (positioned-mode top clipping,
+        reference: image-concat-core.ts:592-599)."""
+        if n <= 0:
+            return
+        self.take(n)
+
+def _bands_from_rows(rows: Iterator[np.ndarray], band_height: int):
+    buf: list[np.ndarray] = []
+    for row in rows:
+        buf.append(np.asarray(row, dtype=np.uint8))
+        if len(buf) == band_height:
+            yield np.stack(buf)
+            buf = []
+    if buf:
+        yield np.stack(buf)
+
+
+class TorchStreamingConcatenator:
+    """Band-streaming concatenator with the band work on a torch device
+    (reference: CoreStreamingConcatenator, image-concat-core.ts:279).
 
     ``mesh`` and any ``backend`` other than "auto" or "torch" raise, since
     they name another package's path."""
 
     def __init__(self, options: ConcatOptions | Mapping[str, Any], device="cuda",
                  counters: EncodeCounters | None = None):
-        opts = ConcatOptions.from_any(options)
-        if opts.mesh is not None:
+        self.options = ConcatOptions.from_any(options)
+        if self.options.mesh is not None:
             raise StitchError("mesh is not supported by image_stitch_tpu_torch")
-        if opts.backend not in ("auto", "torch"):
+        if self.options.backend not in ("auto", "torch"):
             raise StitchError(
-                f"backend={opts.backend!r} is not a path of image_stitch_tpu_torch; "
+                f"backend={self.options.backend!r} is not a path of image_stitch_tpu_torch; "
                 "use 'torch' (or leave it unset)"
             )
-        # The inherited host layers take their numpy route; a copy keeps the
-        # caller's options unchanged.
-        super().__init__(dataclasses.replace(opts, backend="numpy"))
+        self.options.validate()
+        from .utils.observability import PipelineStats
+
+        # Live telemetry for the run (band/pixel/byte counters, stage
+        # timings, streaming-efficiency check). SURVEY §5: first-class here,
+        # absent in the reference.
+        self.stats = PipelineStats()
+        self._pool = None  # host_threads decode workers (lazy)
         self.device = resolve_device(device)
         self.counters = counters if counters is not None else EncodeCounters()
 
-    def _positioned_band_pipeline(self, *args) -> tuple[Iterator[np.ndarray], PngHeader]:
-        """The parent's, with every band a host array, as ``stream_bands``
-        hands them out: a band blended on the device is read back."""
-        bands, out_header = super()._positioned_band_pipeline(*args)
-        return (_to_host(band) for band in bands), out_header
+    def _host_pool(self):
+        """ThreadPoolExecutor for parallel per-input band pulls, or None for
+        serial (host_threads <= 1). The hot per-tile work — native inflate,
+        SIMD defilter, convert — releases the GIL inside ctypes/numpy calls,
+        so separate inputs decode on separate cores. TPU-native extension:
+        the reference is single-threaded Node (SURVEY §2; a worker-pool
+        decode tier has no analog there)."""
+        n = self.options.resolved_host_threads()
+        if n <= 1:
+            return None
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
 
-    def _stream_positioned(self, inputs, decoders, image_headers, headers,
-                           target_depth) -> Iterator[bytes]:
-        """The parent's (image_stitch_tpu/core.py:812-829), with the bands
-        as the compositor leaves them: PNG output filters a band blended on
-        the device where it lies, and ``_encode_jpeg`` reads it back."""
-        bands, out_header = super()._positioned_band_pipeline(
+            self._pool = ThreadPoolExecutor(
+                max_workers=n, thread_name_prefix="stitch-host"
+            )
+        return self._pool
+
+    # ------------------------------------------------------------------ #
+
+    def _check_canvas_dims(self, width: int, height: int) -> None:
+        """Reject canvases beyond max_canvas_dim per axis (0 = unlimited).
+
+        Headers are untrusted input: a corrupt IHDR declaring a huge width
+        would otherwise drive a clean but machine-killing band allocation
+        (fuzz-found MemoryError at ~2^31-px widths) — fail with a clear
+        StitchError before any pixel memory is touched."""
+        limit = self.options.max_canvas_dim
+        if limit and (width > limit or height > limit):
+            raise StitchError(
+                f"Canvas {width}x{height} exceeds maxCanvasDim={limit}; "
+                "raise the maxCanvasDim option if this is intentional"
+            )
+
+    def stream(self) -> Iterator[bytes]:
+        """Two-pass streaming generator (reference: stream(),
+        image-concat-core.ts:927-1003)."""
+        opts = self.options
+        inputs = opts.inputs
+        if not isinstance(inputs, (list, tuple)):
+            inputs = list(inputs)
+        inputs = list(inputs)
+        if len(inputs) == 0:
+            raise StitchError("At least one input image is required")
+
+        positioned_mode = has_positioned_images(inputs)
+        if positioned_mode:
+            validate_positioned_inputs(inputs)
+
+        plugins = (
+            list(opts.decoders) if opts.decoders is not None else get_default_decoder_plugins()
+        )
+        decoders = create_decoders(
+            inputs, opts.decoder_options, plugins, pool=self._host_pool()
+        )
+        try:
+            image_headers: list[ImageHeader] = [d.get_header() for d in decoders]
+            headers = [image_header_to_png_header(h) for h in image_headers]
+            target_depth, target_ct = determine_common_format(headers)
+
+            if positioned_mode:
+                inner = self._stream_positioned(
+                    inputs, decoders, image_headers, headers, target_depth
+                )
+            else:
+                inner = self._stream_grid(
+                    decoders, image_headers, headers, target_depth
+                )
+            for chunk in inner:
+                self.stats.record_output(len(chunk))
+                yield chunk
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
+                self._pool = None
+            for d in decoders:
+                try:
+                    d.close()
+                except Exception:
+                    pass
+
+    def stream_bands(self) -> Iterator[np.ndarray]:
+        """Yield the assembled (h, W, 4) canvas bands as HOST arrays, no
+        encode stage — the array-native output path (the reference's
+        concatCanvases renders onto a canvas without an encode round trip,
+        image-concat-browser.ts:287-323). Same decode/assembly/compositing
+        pipeline and exactness contracts as stream(); dtype is uint8 or
+        uint16 per the common input format."""
+        opts = self.options
+        inputs = opts.inputs
+        if not isinstance(inputs, (list, tuple)):
+            inputs = list(inputs)
+        inputs = list(inputs)
+        if len(inputs) == 0:
+            raise StitchError("At least one input image is required")
+
+        positioned_mode = has_positioned_images(inputs)
+        if positioned_mode:
+            validate_positioned_inputs(inputs)
+        plugins = (
+            list(opts.decoders) if opts.decoders is not None else get_default_decoder_plugins()
+        )
+        decoders = create_decoders(
+            inputs, opts.decoder_options, plugins, pool=self._host_pool()
+        )
+        try:
+            image_headers: list[ImageHeader] = [d.get_header() for d in decoders]
+            headers = [image_header_to_png_header(h) for h in image_headers]
+            target_depth, _target_ct = determine_common_format(headers)
+            if positioned_mode:
+                bands, _hdr = self._positioned_band_pipeline(
+                    inputs, decoders, image_headers, headers, target_depth
+                )
+            else:
+                bands, _hdr = self._grid_band_pipeline(
+                    decoders, image_headers, headers, target_depth
+                )
+            for band in bands:
+                # The positioned device compositor may hand back a
+                # device-resident tensor; materialize on host.
+                yield _to_host(band)
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
+                self._pool = None
+            for d in decoders:
+                try:
+                    d.close()
+                except Exception:
+                    pass
+
+    # ---------------------------- grid mode --------------------------- #
+
+    def _grid_band_pipeline(
+        self,
+        decoders: Sequence,
+        image_headers: Sequence[ImageHeader],
+        headers: Sequence[PngHeader],
+        target_depth: int,
+    ) -> tuple[Iterator[np.ndarray], PngHeader]:
+        """Shared grid setup: layout, sources, band assembly (no encode)."""
+        opts = self.options
+        layout = opts.layout
+        if not (layout.columns or layout.rows or layout.width or layout.height):
+            raise StitchError("Grid mode requires layout: columns, rows, width, or height")
+
+        grid_layout = calculate_layout(headers, layout)
+        self._check_canvas_dims(
+            grid_layout.total_width, grid_layout.total_height
+        )
+        final_depth = 8 if opts.output_format == "jpeg" else target_depth
+
+        out_header = PngHeader(
+            width=grid_layout.total_width,
+            height=grid_layout.total_height,
+            bit_depth=final_depth,
+            color_type=6,
+        )
+
+        progress = (
+            ProgressTracker(headers, opts.on_progress) if opts.on_progress else None
+        )
+        # Batched small-tile decode: many-tiny-tile grids (pngsuite-class
+        # sweeps) group same-signature tiles through one defilter + one
+        # convert call, deleting the dominant per-tile numpy fixed costs.
+        from .codecs.png.group_decode import plan_group_providers
+
+        group_providers = plan_group_providers(
+            decoders,
+            headers,
+            [image_headers[i].metadata or {} for i in range(len(decoders))],
+            final_depth,
+        )
+        sources = [
+            RowSource(
+                i,
+                decoders[i],
+                headers[i],
+                image_headers[i].metadata or {},
+                final_depth,
+                opts.band_height,
+                progress,
+                group_provider=group_providers.get(i),
+            )
+            for i in range(len(decoders))
+        ]
+        return self._grid_canvas_bands(grid_layout, sources, out_header), out_header
+
+    def _stream_grid(
+        self,
+        decoders: Sequence,
+        image_headers: Sequence[ImageHeader],
+        headers: Sequence[PngHeader],
+        target_depth: int,
+    ) -> Iterator[bytes]:
+        bands, out_header = self._grid_band_pipeline(
+            decoders, image_headers, headers, target_depth
+        )
+        if self.options.output_format == "jpeg":
+            yield from self._encode_jpeg(bands, out_header)
+        else:
+            yield PNG_SIGNATURE
+            yield serialize_chunk(create_ihdr(out_header))
+            yield from self._encode_png(bands, out_header)
+            yield serialize_chunk(create_iend())
+
+    def _grid_canvas_bands(
+        self,
+        gl: GridLayout,
+        sources: Sequence[RowSource],
+        out_header: PngHeader,
+    ) -> Iterator[np.ndarray]:
+        """Assemble output bands for the grid (reference hot loop:
+        generateFilteredScanlines / generateRawScanlines,
+        image-concat-core.ts:389-549 / :691-836 — here whole bands at once)."""
+        opts = self.options
+        bg = background_pixel(out_header.bit_depth, opts.background_color)
+        dtype = np.uint16 if out_header.bit_depth == 16 else np.uint8
+        band_h = opts.band_height
+        width = out_header.width
+
+        # Precompute each placed image's (y0, x0) on the canvas and its grid
+        # position for diagnostics.
+        placements = []  # (image_idx, y0, x0, grid_row, grid_col)
+        y_cursor = 0
+        for r, row in enumerate(gl.grid):
+            x_cursor = 0
+            for c, image_idx in enumerate(row):
+                col_w = gl.col_widths[r][c]
+                if image_idx >= 0:
+                    placements.append((image_idx, y_cursor, x_cursor, r + 1, c + 1))
+                    sources[image_idx].set_context(r + 1, c + 1)
+                x_cursor += col_w
+            y_cursor += gl.row_heights[r]
+
+        # Rows of the canvas fully covered by placements skip the background
+        # fill (every cell image spans its full cell): in uniform grids that
+        # is every row, saving a full canvas-sized memset per band.
+        covered_rows = np.zeros(out_header.height, dtype=bool)
+        x_accum = np.zeros(out_header.height, dtype=np.int64)
+        for image_idx, y0, x0, _r, _c in placements:
+            hh = sources[image_idx].header.height
+            ww = sources[image_idx].header.width
+            x_accum[y0 : y0 + hh] += ww
+        covered_rows = x_accum >= width
+
+        from .utils import trim_malloc  # noqa: F401 (used below)
+
+        total_h = out_header.height
+
+        def band_active(band_y0: int, h: int):
+            active = []  # (image_idx, x0, img_w, seg_y0, seg_y1)
+            for image_idx, y0, x0, _r, _c in placements:
+                img_h = sources[image_idx].header.height
+                img_w = sources[image_idx].header.width
+                seg_y0 = max(band_y0, y0)
+                seg_y1 = min(band_y0 + h, y0 + img_h)
+                if seg_y1 > seg_y0:
+                    active.append((image_idx, x0, img_w, seg_y0, seg_y1))
+            return active
+
+        band_specs = [
+            (band_y0, min(band_h, total_h - band_y0))
+            for band_y0 in range(0, total_h, band_h)
+        ]
+        pool = self._host_pool()
+
+        def make_plan(band_y0: int, h: int):
+            """(active, futs): the band's segments, with pool futures for
+            their pulls when host_threads > 1."""
+            active = band_active(band_y0, h)
+            futs = None
+            if pool is not None:
+                # One pull per input (each input owns one grid cell, so
+                # takes touch disjoint sources); placement order keeps
+                # bytes and first-error identical to serial.
+                futs = [
+                    pool.submit(sources[image_idx].take, seg_y1 - seg_y0)
+                    for image_idx, _x0, _w, seg_y0, seg_y1 in active
+                ]
+            return (active, futs)
+
+        pending = None  # lookahead: band N+1 decodes while N encodes
+        for band_idx, (band_y0, h) in enumerate(band_specs):
+            if band_idx and band_idx % 16 == 0:
+                trim_malloc()  # keep RSS at the live set, not the high-water
+            active, futs = pending if pending is not None else make_plan(band_y0, h)
+            pending = None
+            canvas = np.empty((h, width, 4), dtype=dtype)
+            if not covered_rows[band_y0 : band_y0 + h].all():
+                canvas[:] = bg
+            for i, (image_idx, x0, img_w, seg_y0, seg_y1) in enumerate(active):
+                if futs is not None:
+                    rows = futs[i].result()
+                else:
+                    rows = sources[image_idx].take(seg_y1 - seg_y0)
+                canvas[seg_y0 - band_y0 : seg_y1 - band_y0, x0 : x0 + img_w] = rows
+            # Submit the NEXT band's pulls before yielding: the consumer
+            # encodes this band (native entropy/deflate release the GIL)
+            # while the workers decode ahead. Bounded lookahead: one
+            # band of rows per source.
+            if band_idx + 1 < len(band_specs):
+                pending = make_plan(*band_specs[band_idx + 1])
+            yield canvas
+
+    # -------------------------- positioned mode ------------------------ #
+
+    def _positioned_band_pipeline(
+        self,
+        inputs: Sequence,
+        decoders: Sequence,
+        image_headers: Sequence[ImageHeader],
+        headers: Sequence[PngHeader],
+        target_depth: int,
+    ) -> tuple[Iterator[np.ndarray], PngHeader]:
+        """Shared positioned setup: canvas size, clipping, sources, band
+        compositing (no encode)."""
+        opts = self.options
+        positions_raw = extract_positions(inputs)
+        positions = []
+        for pos in positions_raw:
+            if pos is None:
+                raise StitchError("Internal error: non-positioned image in positioned mode")
+            positions.append(pos)
+
+        canvas_w, canvas_h = calculate_canvas_size(
+            [
+                {
+                    "x": p["x"],
+                    "y": p["y"],
+                    "width": headers[i].width,
+                    "height": headers[i].height,
+                }
+                for i, p in enumerate(positions)
+            ],
+            opts.layout.width,
+            opts.layout.height,
+        )
+        self._check_canvas_dims(canvas_w, canvas_h)
+        clipped, placed = clip_images_to_canvas(positions, headers, canvas_w, canvas_h)
+        clip_by_idx = {c.image_idx: c for c in clipped}
+
+        out_format = opts.output_format
+        final_depth = 8 if out_format == "jpeg" else target_depth
+        out_header = PngHeader(
+            width=canvas_w, height=canvas_h, bit_depth=final_depth, color_type=6
+        )
+
+        progress = (
+            ProgressTracker(headers, opts.on_progress) if opts.on_progress else None
+        )
+        sources = [
+            RowSource(
+                i,
+                decoders[i],
+                headers[i],
+                image_headers[i].metadata or {},
+                final_depth,
+                opts.band_height,
+                progress,
+            )
+            for i in range(len(decoders))
+        ]
+        bands = self._positioned_canvas_bands(
+            placed, clip_by_idx, sources, out_header
+        )
+        return bands, out_header
+
+    def _stream_positioned(
+        self,
+        inputs: Sequence,
+        decoders: Sequence,
+        image_headers: Sequence[ImageHeader],
+        headers: Sequence[PngHeader],
+        target_depth: int,
+    ) -> Iterator[bytes]:
+        bands, out_header = self._positioned_band_pipeline(
             inputs, decoders, image_headers, headers, target_depth
         )
         if self.options.output_format == "jpeg":
@@ -103,24 +751,30 @@ class TorchStreamingConcatenator(CoreStreamingConcatenator):
         sources: Sequence[RowSource],
         out_header: PngHeader,
     ) -> Iterator[np.ndarray | torch.Tensor]:
-        """Assemble positioned-mode bands back to front.
-
-        A copy of ``CoreStreamingConcatenator._positioned_canvas_bands``
-        (image_stitch_tpu/core.py:831-942) that changes two things: the
-        compositor (:847-860) is a torch ``DeviceCompositor`` whenever
-        blending is on and the band is 8-bit; and the hand-off (:920-934)
-        yields the blended band as the device tensor it is."""
+        """Assemble positioned-mode bands back-to-front
+        (reference: generatePositionedScanlines, image-concat-core.ts:551-686;
+        z-order per band instead of per scanline)."""
         opts = self.options
         bg = background_pixel(out_header.bit_depth, opts.background_color)
         dtype = np.uint16 if out_header.bit_depth == 16 else np.uint8
         band_h = opts.band_height
         blend = opts.enable_alpha_blending is not False
 
+        # Device compositor (one kernel launch per band) for 8-bit alpha
+        # blending; exact-tie bands replay through the host float64 oracle
+        # (ops/composite_device.py).
         compositor = None
         if blend and dtype == np.uint8:
             compositor = DeviceCompositor(self.device, self.counters)
 
         plans = build_band_plan(placed, out_header.height, band_h)
+        # Per-image caches: positioned images can span bands; rows are read
+        # once and in order (sources are streams). Because z-order within a
+        # band can interleave images arbitrarily but rows are consumed
+        # band-by-band monotonically per image, streaming works: each band
+        # touches a contiguous, increasing row range per image.
+        from .utils import trim_malloc
+
         for band_idx, segs in enumerate(plans):
             if band_idx and band_idx % 16 == 0:
                 trim_malloc()
@@ -147,10 +801,11 @@ class TorchStreamingConcatenator(CoreStreamingConcatenator):
             seg_rows: list[tuple[np.ndarray, int, int]] = []
             pool = self._host_pool()
             if pool is not None and len(segs) > 1:
-                # Pulls parallelize across images; a given source's pulls
-                # stay ordered (skip/take move its row cursor), so each
-                # worker owns every segment of one image, in band order, and
-                # seg_rows is reassembled in z-sorted segment order.
+                # Pulls parallelize ACROSS images; a given source's pulls
+                # must stay ordered (skip/take mutate its row cursor), so
+                # each worker owns every segment of one image, in band
+                # order. seg_rows is reassembled in the original z-sorted
+                # segment order, so composited bytes match serial exactly.
                 by_image: dict[int, list[int]] = {}
                 for i, seg in enumerate(segs):
                     by_image.setdefault(seg.image_idx, []).append(i)
@@ -158,7 +813,10 @@ class TorchStreamingConcatenator(CoreStreamingConcatenator):
                 def pull_image(indices: list[int]):
                     return [(i, pull_seg(segs[i])) for i in indices]
 
-                futs = [pool.submit(pull_image, indices) for indices in by_image.values()]
+                futs = [
+                    pool.submit(pull_image, indices)
+                    for indices in by_image.values()
+                ]
                 gathered: dict[int, tuple[np.ndarray, int, int]] = {}
                 for fut in futs:
                     for i, res in fut.result():
@@ -168,6 +826,9 @@ class TorchStreamingConcatenator(CoreStreamingConcatenator):
                 for seg in segs:
                     seg_rows.append(pull_seg(seg))
             if compositor is not None and seg_rows:
+                # Device handoff: the blended band stays resident on the
+                # device; PNG output filters it there, and _encode_jpeg
+                # reads it back for the host strip buffer.
                 blended = compositor.composite_band(canvas, seg_rows)
                 if blended is not None:
                     yield blended
@@ -181,13 +842,14 @@ class TorchStreamingConcatenator(CoreStreamingConcatenator):
                 )
             yield canvas
 
-    def _encode_png(self, bands: Iterator[np.ndarray | torch.Tensor],
-                    out_header: PngHeader) -> Iterator[bytes]:
+    # ----------------------------- encoders ---------------------------- #
+
+    def _encode_png(
+        self, bands: Iterator[np.ndarray | torch.Tensor], out_header: PngHeader
+    ) -> Iterator[bytes]:
         """Filter-select each band on the device, feed the streaming
-        deflator, emit IDAT chunks as they form: the parent's body
-        (image_stitch_tpu/core.py:946-1013) with ``TorchBackend`` in place
-        of ``get_backend``, which would pick the host tier from the
-        inherited ``backend="numpy"``."""
+        deflator, emit IDAT chunks as they materialize (reference:
+        streamCompressedData, image-concat-core.ts:309-383)."""
         backend = TorchBackend(self.device, self.counters)
         chunks: list[bytes] = []
         deflator = StreamingDeflator(
@@ -195,6 +857,9 @@ class TorchStreamingConcatenator(CoreStreamingConcatenator):
             on_data=chunks.append,
             strategy=self.options.png_compression_strategy,
             pool=self._host_pool(),
+            # The IDAT stream is always filter residuals: the native tier's
+            # filtered-scanline matcher profile (+20% stage at zlib-6-parity
+            # size on this class; io/deflate.py) applies under "default".
             content_hint="filtered_png",
         )
 
@@ -208,10 +873,10 @@ class TorchStreamingConcatenator(CoreStreamingConcatenator):
             while chunks:
                 yield serialize_chunk(create_idat(chunks.pop(0)))
 
-        # One-band lookahead: submit band N (device filter select and the
-        # queued read-back), then deflate band N-1 on the host. The carry
-        # row is input data that stays on the device, so a submit never
-        # waits on device results.
+        # One-band lookahead: submit filter-select for band N (device compute
+        # + async readback), then deflate band N-1 on the host. The filter
+        # carry (previous raw row) is input data that stays on the device,
+        # so submission never waits on device results.
         prev_row = None
         pending = None
         for canvas in bands:
@@ -227,10 +892,13 @@ class TorchStreamingConcatenator(CoreStreamingConcatenator):
         while chunks:
             yield serialize_chunk(create_idat(chunks.pop(0)))
 
-    def _encode_jpeg(self, bands: Iterator[np.ndarray | torch.Tensor],
-                     out_header: PngHeader) -> Iterator[bytes]:
-        """The parent's JPEG stage on ``TorchStreamingJpegEncoder``, which
-        takes host bands: a band blended on the device is read back."""
+    def _encode_jpeg(
+        self, bands: Iterator[np.ndarray | torch.Tensor], out_header: PngHeader
+    ) -> Iterator[bytes]:
+        """JPEG encode over 8-row MCU strips (reference: streamJpegData,
+        image-concat-core.ts:837-925; edge-pixel repetition for the partial
+        final strip happens inside the encoder). The encoder takes host
+        bands: a band blended on the device is read back."""
         encoder = TorchStreamingJpegEncoder(
             width=out_header.width,
             height=out_header.height,

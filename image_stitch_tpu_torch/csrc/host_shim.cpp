@@ -8,25 +8,31 @@
 
 #include "composite.cuh"
 #include "filter.cuh"
-#include "merge.cuh"
-#include "pack.cuh"
+#include "pack_merge.cuh"
 
-extern "C" void pack_blocks_aligned_host(const int32_t* codes,
-                                         const int32_t* lens,
-                                         const int32_t* starts, int32_t* out,
-                                         int nb, int n_sym, int n_aw) {
+// The pairs of each block run in order with a running sum of their lengths:
+// the serial chain that the kernel's warp scan reproduces.
+extern "C" void pack_merge_host(const int32_t* codes, const int32_t* lens,
+                                const int32_t* starts, int32_t* dense, int nb,
+                                int n_sym, int n_aw, int n_words) {
+  uint32_t stage[PACK_MAX_AW];
   for (int b = 0; b < nb; ++b) {
     const size_t row = (size_t)b * (size_t)n_sym;
-    pack_block(codes + row, lens + row, starts[b], n_sym, n_aw,
-               out + (size_t)b * (size_t)n_aw);
-  }
-}
-
-extern "C" void merge_or_host(const int32_t* local, const int32_t* starts,
-                              int32_t* dense, int nb, int n_aw, int n_words) {
-  for (int b = 0; b < nb; ++b) {
-    merge_block(local + (size_t)b * (size_t)n_aw, starts[b], n_aw, n_words,
-                (uint32_t*)dense);
+    for (int c = 0; c < n_aw; ++c) stage[c] = 0u;
+    int off = starts[b] & 31;
+    for (int s = 0; s < n_sym; s += 2) {
+      const bool has2 = s + 1 < n_sym;
+      const uint32_t c2 = has2 ? (uint32_t)codes[row + s + 1] : 0u;
+      const int l2 = has2 ? lens[row + s + 1] : 0;
+      off += lens[row + s] + l2;
+      const PairWords pw =
+          pair_words((uint32_t)codes[row + s], c2, l2, off, n_aw);
+      for (int k = 0; k < 3; ++k) stage[pw.idx[k]] |= pw.val[k];
+    }
+    for (int c = 0; c < n_aw; ++c) {
+      const int idx = dense_index(starts[b], c, n_words);
+      if (idx >= 0) ((uint32_t*)dense)[idx] += stage[c];
+    }
   }
 }
 

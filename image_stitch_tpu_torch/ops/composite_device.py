@@ -4,8 +4,8 @@ The counterpart of ``image_stitch_tpu/ops/composite_device.py``'s
 ``DeviceCompositor``: the band's z-ordered segments blend over its uniform
 background in one launch of ``kernels.composite_segments``, in exact
 integer rationals, and a band with an exact rational tie is replayed
-through the host's float64 oracle (``image_stitch_tpu.ops.pixel.
-composite_band``), where the two may round apart. That module's docstring
+through the host's float64 oracle (``ops.pixel.composite_band``, the
+port's copy), where the two may round apart. The JAX module's docstring
 gives the exactness argument, and why 16-bit bands stay on the host.
 
 The TPU compile-cache workarounds are not ported: the kernel takes any

@@ -14,22 +14,22 @@ from __future__ import annotations
 
 import torch
 
-from image_stitch_tpu.ops.jpeg_dct import (
-    CONST_BITS,
-    FIX_0_298631336,
-    FIX_0_390180644,
-    FIX_0_541196100,
-    FIX_0_765366865,
-    FIX_0_899976223,
-    FIX_1_175875602,
-    FIX_1_501321110,
-    FIX_1_847759065,
-    FIX_1_961570560,
-    FIX_2_053119869,
-    FIX_2_562915447,
-    FIX_3_072711026,
-    PASS1_BITS,
-)
+CONST_BITS = 13
+PASS1_BITS = 2
+
+# 13-bit fixed-point DCT constants (round(c * 8192); T.81 §A.3.3 / jfdctint).
+FIX_0_298631336 = 2446
+FIX_0_390180644 = 3196
+FIX_0_541196100 = 4433
+FIX_0_765366865 = 6270
+FIX_0_899976223 = 7373
+FIX_1_175875602 = 9633
+FIX_1_501321110 = 12299
+FIX_1_847759065 = 15137
+FIX_1_961570560 = 16069
+FIX_2_053119869 = 16819
+FIX_2_562915447 = 20995
+FIX_3_072711026 = 25172
 
 
 def _descale(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """JPEG entropy coding on the device, in torch: symbol streams, the
-phase-1 pack and phase-2 merge kernels, and the streaming band encoder.
+pack-and-merge kernel, and the streaming band encoder.
 
 Port of ``image_stitch_tpu/ops/jpeg_entropy_device.py``. Per band:
 
@@ -8,9 +8,9 @@ Port of ``image_stitch_tpu/ops/jpeg_entropy_device.py``. Per band:
    turn quantized blocks into (B, 65) Huffman (code, length) slots: DC,
    63 AC positions, EOB. Plain torch: a gather for the zigzag order, a
    ``cummax`` for run lengths, LUT gathers for the codes.
-2. ``pack_blocks_aligned`` (csrc/pack.cu) packs each block's slots into
-   words pre-aligned to the block's global start bit.
-3. ``merge_or`` (csrc/merge.cu) ORs those words into the dense stream.
+2. ``pack_merge`` (csrc/pack_merge.cu) packs each block's slots into
+   words pre-aligned to the block's global start bit and adds them into
+   the dense stream, in one launch.
 
 ``pack_groups_from_blocks`` lays restart groups out densely (group g at
 word cumsum(ceil(bits/32))[g]); ``entropy_pack_carried`` packs one stream
@@ -31,11 +31,11 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from image_stitch_tpu.codecs.jpeg.tables import ZIGZAG, huffman_lut
-
+from ..codecs.jpeg.huffman import BitPacker, HuffmanEncoder, interleave_mcus
+from ..codecs.jpeg.tables import ZIGZAG, huffman_lut
 from .counters import EncodeCounters
 from .device import jpeg_quantize, jpeg_quantize_420
-from .kernels import merge_or, pack_blocks_aligned
+from .kernels import pack_merge
 
 # Packed-output budget in bits per pixel before the first band reports,
 # and its ceiling (the JAX package's values).
@@ -200,7 +200,7 @@ def _exclusive_cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# Pack + merge
+# Pack and merge
 # --------------------------------------------------------------------------- #
 
 
@@ -228,8 +228,7 @@ def pack_groups_from_blocks(yb, cbb, crb, luts: dict, n_groups: int, cap_words: 
     per-word overlap bound, so ``max_overlap`` is always 0."""
     codes, lens = _symbol_streams_flat(yb, cbb, crb, luts, n_groups, sampling)
     starts, group_bits, block_bits = _group_layout(lens, n_groups)
-    local = pack_blocks_aligned(codes, lens, starts, local_words)
-    dense = merge_or(local, starts, n_groups * cap_words)
+    dense = pack_merge(codes, lens, starts, local_words, n_groups * cap_words)
     max_overlap = torch.zeros((), dtype=torch.int32, device=dense.device)
     return dense, group_bits, block_bits.max(), max_overlap
 
@@ -249,8 +248,7 @@ def entropy_pack_carried(yb, cbb, crb, luts: dict, prev_dc: torch.Tensor,
     starts64 = bit_base.to(torch.int64) + _exclusive_cumsum(block_bits)
     total_bits = bit_base.to(torch.int64) + block_bits.sum()
     starts = starts64.to(torch.int32)
-    local = pack_blocks_aligned(codes, lens, starts, local_words)
-    words = merge_or(local, starts, cap_words)
+    words = pack_merge(codes, lens, starts, local_words, cap_words)
     return words, total_bits, new_dc, block_bits.max().to(torch.int32)
 
 
@@ -392,11 +390,6 @@ class TorchJpegEncoder:
         return (dense, group_bits, max_bb, blocks, n_groups, cap_words,
                 px_per_group, self._local_words)
 
-    def flush_pending(self):
-        """Nothing accumulates with a batch of 1; ``StreamingJpegEncoder.
-        finish`` calls this at the end of the stream."""
-        return None
-
     # ---- wait --------------------------------------------------------------
 
     def _rst_marker(self) -> bytes:
@@ -464,8 +457,6 @@ class TorchJpegEncoder:
         return bytes(out)
 
     def _interleave_host(self, yc, yl, cbc, cbl, crc, crl):
-        from image_stitch_tpu.codecs.jpeg.huffman import interleave_mcus
-
         if self._sampling != "420":
             return interleave_mcus([(yc, yl), (cbc, cbl), (crc, crl)])
         codes_parts, lens_parts = [], []
@@ -482,8 +473,6 @@ class TorchJpegEncoder:
 
     def _host_fallback_groups(self, blocks, n_groups: int) -> bytes:
         """Exact host coding of a group-aligned band (the overflow path)."""
-        from image_stitch_tpu.codecs.jpeg.huffman import BitPacker, HuffmanEncoder
-
         yb, cbb, crb = self._host_blocks(blocks)
         dc_l, ac_l, dc_c, ac_c = self._host_tables
         enc_l = HuffmanEncoder(dc_l, ac_l)
@@ -537,8 +526,6 @@ class TorchJpegEncoder:
         return _stuff(np.frombuffer(bytes(data[:full_bytes]), dtype=np.uint8))
 
     def _host_fallback_blocks(self, blocks, prev_dc_in) -> bytes:
-        from image_stitch_tpu.codecs.jpeg.huffman import BitPacker, HuffmanEncoder
-
         yb, cbb, crb = self._host_blocks(blocks)
         dc_l, ac_l, dc_c, ac_c = self._host_tables
         enc_l = HuffmanEncoder(dc_l, ac_l)

@@ -1,9 +1,9 @@
 """Hand-written Hopper kernels, with their plain torch versions.
 
-- ``pack_blocks_aligned`` (csrc/pack.cu) replaces the Pallas kernel
-  ``image_stitch_tpu/ops/pallas_kernels.py::_pack_kernel``;
-- ``merge_or`` (csrc/merge.cu) replaces
-  ``ops/jpeg_entropy_device.py::_merge_aligned_hybrid``;
+- ``pack_merge`` (csrc/pack_merge.cu) replaces the Pallas kernel
+  ``image_stitch_tpu/ops/pallas_kernels.py::_pack_kernel`` and the merge
+  that follows it, ``ops/jpeg_entropy_device.py::_merge_aligned_hybrid``;
+  its plain version is ``merge_or_plain`` of ``pack_blocks_aligned_plain``;
 - ``filter_select`` (csrc/filter.cu) replaces the Pallas kernel
   ``ops/pallas_kernels.py::_filter_kernel`` with the band's byte view;
 - ``composite_segments`` (csrc/composite.cu) replaces the compositor scan
@@ -31,7 +31,7 @@ import torch
 from .._build import load_cuda_kernels
 
 MASK32 = 0xFFFFFFFF
-# Largest words-per-block the kernels take (csrc/pack.cuh PACK_MAX_AW).
+# Largest words-per-block the kernel takes (csrc/pack_merge.cuh PACK_MAX_AW).
 MAX_AW = 32
 
 
@@ -58,13 +58,13 @@ def _stream(device: torch.device) -> int:
 
 
 # --------------------------------------------------------------------------- #
-# Phase 1: pack
+# JPEG entropy pack and merge
 # --------------------------------------------------------------------------- #
 
 
 def pack_blocks_aligned_plain(codes: torch.Tensor, lens: torch.Tensor,
                               starts: torch.Tensor, local_words: int) -> torch.Tensor:
-    """Plain torch phase-1 pack, the same arithmetic as csrc/pack.cuh.
+    """Plain torch phase-1 pack, the same arithmetic as csrc/pack_merge.cuh.
 
     codes, lens: (nb, n_sym) int32; starts: (nb,) int32 global start bits.
     Returns (nb, local_words + 2) int32 words pre-aligned to each block's
@@ -107,48 +107,6 @@ def pack_blocks_aligned_plain(codes: torch.Tensor, lens: torch.Tensor,
     return local.to(torch.int32)
 
 
-def pack_blocks_aligned(codes: torch.Tensor, lens: torch.Tensor,
-                        starts: torch.Tensor, local_words: int) -> torch.Tensor:
-    """Phase-1 pack: (nb, n_sym) int32 symbol streams and (nb,) int32 start
-    bits -> (nb, local_words + 2) int32 pre-aligned words. Launches
-    csrc/pack.cu for CUDA tensors; the plain version for CPU tensors."""
-    nb, n_sym = codes.shape
-    device = codes.device
-    _check(codes, "codes", torch.int32, 2, device)
-    _check(lens, "lens", torch.int32, 2, device)
-    _check(starts, "starts", torch.int32, 1, device)
-    n_aw = local_words + 2
-    if lens.shape != codes.shape or starts.shape[0] != nb:
-        raise ValueError(
-            f"shapes differ: codes {tuple(codes.shape)}, lens "
-            f"{tuple(lens.shape)}, starts {tuple(starts.shape)}"
-        )
-    if not 1 <= n_aw <= MAX_AW:
-        raise ValueError(f"local_words + 2 = {n_aw} outside [1, {MAX_AW}]")
-    if device.type == "cpu":
-        return pack_blocks_aligned_plain(codes, lens, starts, local_words)
-    if device.type != "cuda":
-        raise ValueError(f"pack_blocks_aligned: unsupported device {device}")
-    out = torch.empty((nb, n_aw), dtype=torch.int32, device=device)
-    if nb == 0:
-        return out
-    lib = load_cuda_kernels()
-    _launch(
-        lib.pack_blocks_aligned_launch, codes.data_ptr(), lens.data_ptr(),
-        starts.data_ptr(), out.data_ptr(), nb, n_sym, n_aw, _stream(device),
-    )
-    pack_blocks_aligned.launches += 1
-    return out
-
-
-pack_blocks_aligned.launches = 0
-
-
-# --------------------------------------------------------------------------- #
-# Phase 2: merge
-# --------------------------------------------------------------------------- #
-
-
 def merge_or_plain(local: torch.Tensor, starts: torch.Tensor,
                    n_words: int) -> torch.Tensor:
     """Plain torch merge: an int64 ``index_add_`` of each block's words at
@@ -164,35 +122,52 @@ def merge_or_plain(local: torch.Tensor, starts: torch.Tensor,
     return dense.to(torch.int32)
 
 
-def merge_or(local: torch.Tensor, starts: torch.Tensor, n_words: int) -> torch.Tensor:
-    """Phase-2 merge: OR each block's (nb, n_aw) pre-aligned words into a
-    zeroed (n_words,) int32 stream at ``(starts >> 5) + c``. Launches
-    csrc/merge.cu for CUDA tensors; the plain version for CPU tensors."""
-    device = local.device
-    _check(local, "local", torch.int32, 2, device)
+def pack_merge_plain(codes: torch.Tensor, lens: torch.Tensor, starts: torch.Tensor,
+                     local_words: int, n_words: int) -> torch.Tensor:
+    """The plain version of ``pack_merge``: the phase-1 pack, then the
+    merge, with the (nb, local_words + 2) words between them."""
+    return merge_or_plain(pack_blocks_aligned_plain(codes, lens, starts, local_words),
+                          starts, n_words)
+
+
+def pack_merge(codes: torch.Tensor, lens: torch.Tensor, starts: torch.Tensor,
+               local_words: int, n_words: int) -> torch.Tensor:
+    """Pack each block's (nb, n_sym) int32 symbol slots at its (nb,) int32
+    global start bit and merge the words into a zeroed (n_words,) int32
+    stream; indices past n_words are dropped. Launches csrc/pack_merge.cu
+    for CUDA tensors; the plain version for CPU tensors."""
+    nb, n_sym = codes.shape
+    device = codes.device
+    _check(codes, "codes", torch.int32, 2, device)
+    _check(lens, "lens", torch.int32, 2, device)
     _check(starts, "starts", torch.int32, 1, device)
-    nb, n_aw = local.shape
-    if starts.shape[0] != nb:
-        raise ValueError(f"starts has {starts.shape[0]} blocks, local {nb}")
-    if n_words < 0:
-        raise ValueError(f"n_words = {n_words} < 0")
+    n_aw = local_words + 2
+    if lens.shape != codes.shape or starts.shape[0] != nb:
+        raise ValueError(
+            f"shapes differ: codes {tuple(codes.shape)}, lens "
+            f"{tuple(lens.shape)}, starts {tuple(starts.shape)}"
+        )
+    if not 1 <= n_aw <= MAX_AW:
+        raise ValueError(f"local_words + 2 = {n_aw} outside [1, {MAX_AW}]")
+    if not 0 <= n_words < 1 << 31:
+        raise ValueError(f"n_words = {n_words} outside [0, 2^31)")
     if device.type == "cpu":
-        return merge_or_plain(local, starts, n_words)
+        return pack_merge_plain(codes, lens, starts, local_words, n_words)
     if device.type != "cuda":
-        raise ValueError(f"merge_or: unsupported device {device}")
+        raise ValueError(f"pack_merge: unsupported device {device}")
     dense = torch.zeros(n_words, dtype=torch.int32, device=device)
-    if nb == 0 or n_words == 0:
+    if nb == 0 or n_sym == 0 or n_words == 0:
         return dense
     lib = load_cuda_kernels()
     _launch(
-        lib.merge_or_launch, local.data_ptr(), starts.data_ptr(),
-        dense.data_ptr(), nb, n_aw, n_words, _stream(device),
+        lib.pack_merge_launch, codes.data_ptr(), lens.data_ptr(), starts.data_ptr(),
+        dense.data_ptr(), nb, n_sym, n_aw, n_words, _stream(device),
     )
-    merge_or.launches += 1
+    pack_merge.launches += 1
     return dense
 
 
-merge_or.launches = 0
+pack_merge.launches = 0
 
 
 # --------------------------------------------------------------------------- #

@@ -13,10 +13,11 @@ import pytest
 import torch
 
 import image_stitch_tpu
+import image_stitch_tpu.types
 import image_stitch_tpu_torch
-from image_stitch_tpu.codecs.png.writer import build_png
-from image_stitch_tpu.types import PngHeader, PositionedImage
+from image_stitch_tpu_torch.codecs.png.writer import build_png
 from image_stitch_tpu_torch.ops import kernels as K
+from image_stitch_tpu_torch.types import PngHeader, PositionedImage
 
 pytestmark = pytest.mark.cuda
 
@@ -28,6 +29,14 @@ def png_from_array(rgba: np.ndarray) -> bytes:
                      zlib.compress(raw.tobytes()))
 
 
+def host(opts):
+    """The JAX package's numpy host tier on ``opts``, the port's
+    PositionedImage inputs given as that package's class."""
+    inputs = [image_stitch_tpu.types.PositionedImage(i.x, i.y, i.source, z_index=i.z_index)
+              if isinstance(i, PositionedImage) else i for i in opts["inputs"]]
+    return image_stitch_tpu.concat_to_buffer({**opts, "inputs": inputs, "backend": "numpy"})
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -35,31 +44,34 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def streams(nb, n_sym, lw, seed):
+def streams(nb, n_sym, lw, seed, clamp=True):
     rng = np.random.default_rng(seed)
     lens = rng.integers(0, 17, size=(nb, n_sym)).astype(np.int32)
     lens[rng.random(lens.shape) < 0.3] = 0
-    over = lens.sum(axis=1) > lw * 32
-    lens[over] = np.minimum(lens[over], 4)
+    if clamp:
+        over = lens.sum(axis=1) > lw * 32
+        lens[over] = np.minimum(lens[over], 4)
     codes = (rng.integers(0, 1 << 16, size=(nb, n_sym)) & ((1 << lens) - 1)).astype(np.int32)
     starts = (np.concatenate([[0], np.cumsum(lens.sum(axis=1))[:-1]])
               + int(rng.integers(1, 32))).astype(np.int32)
     return codes, lens, starts
 
 
-@pytest.mark.parametrize("nb,n_sym,lw", [(10, 11, 13), (5000, 65, 12), (3001, 65, 24)])
-def test_kernels_match_plain(cuda, nb, n_sym, lw):
-    codes, lens, starts = (torch.from_numpy(a).to(cuda) for a in streams(nb, n_sym, lw, nb))
-    launches = (K.pack_blocks_aligned.launches, K.merge_or.launches)
-    local = K.pack_blocks_aligned(codes, lens, starts, lw)
-    plain = K.pack_blocks_aligned_plain(codes, lens, starts, lw)
+@pytest.mark.parametrize("nb,n_sym,lw,clamp", [(10, 11, 13, True), (5000, 65, 12, True),
+                                               (3001, 65, 24, True), (700, 65, 4, False)])
+def test_kernels_match_plain(cuda, nb, n_sym, lw, clamp):
+    """pack_merge against the plain pack then merge, at a word count that
+    holds the stream and at one that drops its last three words; (700, 65,
+    4) has blocks over budget whose clipped words overlap."""
+    codes, lens, starts = (torch.from_numpy(a).to(cuda)
+                           for a in streams(nb, n_sym, lw, nb, clamp))
+    launches = K.pack_merge.launches
     n_words = int(starts[-1] + lens[-1].sum()) // 32 + 1
-    dense = K.merge_or(local, starts, n_words)
-    torch.cuda.synchronize()
-    assert torch.equal(local, plain)
-    assert torch.equal(dense, K.merge_or_plain(plain, starts, n_words))
-    assert (K.pack_blocks_aligned.launches, K.merge_or.launches) == (launches[0] + 1,
-                                                                     launches[1] + 1)
+    for nw in (n_words, n_words - 3):
+        dense = K.pack_merge(codes, lens, starts, lw, nw)
+        torch.cuda.synchronize()
+        assert torch.equal(dense, K.pack_merge_plain(codes, lens, starts, lw, nw))
+    assert K.pack_merge.launches == launches + 2
 
 
 @pytest.mark.parametrize("ri,sampling", [(0, "444"), (1, "444"), (2, "420")])
@@ -71,7 +83,7 @@ def test_slice_matches_host(cuda, ri, sampling):
             "jpegRestartIntervalRows": ri, "jpegSampling": sampling, "bandHeight": 48}
     counters = image_stitch_tpu_torch.EncodeCounters()
     got = image_stitch_tpu_torch.concat_to_buffer(opts, device=cuda, counters=counters)
-    assert got == image_stitch_tpu.concat_to_buffer({**opts, "backend": "numpy"})
+    assert got == host(opts)
     assert counters.bands > 0
 
 
@@ -132,7 +144,7 @@ def test_grid_and_positioned_png_match_host(cuda):
         counters = image_stitch_tpu_torch.EncodeCounters()
         launches = K.filter_select.launches
         got = image_stitch_tpu_torch.concat_to_buffer(opts, device=cuda, counters=counters)
-        assert got == image_stitch_tpu.concat_to_buffer({**opts, "backend": "numpy"})
+        assert got == host(opts)
         assert counters.png_bands > 0 and K.filter_select.launches == launches + counters.png_bands
     # One band of the positioned case holds an exact rational tie and is
     # replayed on the host, as on the CPU.
@@ -154,11 +166,14 @@ def test_positioned_jpeg_and_stream_bands_match_host(cuda):
             "bandHeight": 32, "outputFormat": "jpeg"}
     counters = image_stitch_tpu_torch.EncodeCounters()
     got = image_stitch_tpu_torch.concat_to_buffer(opts, device=cuda, counters=counters)
-    assert got == image_stitch_tpu.concat_to_buffer({**opts, "backend": "numpy"})
+    assert got == host(opts)
     assert counters.composite_bands_on_device > 0
     bands = list(image_stitch_tpu_torch.TorchStreamingConcatenator(
         opts, device=cuda).stream_bands())
-    ref = list(CoreStreamingConcatenator({**opts, "backend": "numpy"}).stream_bands())
+    jax_inputs = [image_stitch_tpu.types.PositionedImage(i.x, i.y, i.source)
+                  for i in opts["inputs"]]
+    ref = list(CoreStreamingConcatenator({**opts, "inputs": jax_inputs,
+                                          "backend": "numpy"}).stream_bands())
     assert len(bands) == len(ref)
     for a, b in zip(bands, ref):
         assert type(a) is np.ndarray

@@ -1,0 +1,87 @@
+"""The torch port stands alone: it imports nothing of ``image_stitch_tpu``.
+
+(a) Every ``.py`` file of ``image_stitch_tpu_torch/`` and ``chip_smoke.py``,
+parsed with ``ast``, has no ``import image_stitch_tpu...`` and no ``from
+image_stitch_tpu... import``; relative imports stay inside the port.
+(b) A fresh process imports every module of the port and runs
+``concat_to_buffer(..., device="cpu")`` to JPEG and to PNG on a 2 x 2 grid;
+afterwards no module of ``image_stitch_tpu`` and no ``jax`` is loaded.
+"""
+
+import ast
+import glob
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = "image_stitch_tpu_torch"
+FILES = sorted(
+    os.path.relpath(p, REPO)
+    for p in glob.glob(os.path.join(REPO, PORT, "**", "*.py"), recursive=True)
+) + ["chip_smoke.py"]
+
+
+def _foreign(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("image_stitch_tpu", "jax")
+
+
+@pytest.mark.parametrize("rel", FILES)
+def test_file_imports_nothing_of_the_jax_package(rel):
+    with open(os.path.join(REPO, rel)) as f:
+        tree = ast.parse(f.read(), filename=rel)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if _foreign(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _foreign(node.module):
+                found.append(node.module)
+    assert not found, f"{rel} imports {found}"
+
+
+def test_port_files_are_listed():
+    """The parametrisation above covers the whole package, copies included."""
+    for rel in ("image_stitch_tpu_torch/core.py", "image_stitch_tpu_torch/native/__init__.py",
+                "image_stitch_tpu_torch/codecs/png/decoder.py",
+                "image_stitch_tpu_torch/codecs/jpeg/owned_decoder.py"):
+        assert rel in FILES
+
+
+RUN = """
+import importlib, pkgutil, sys
+import numpy as np
+import image_stitch_tpu_torch as port
+from image_stitch_tpu_torch.codecs.png.writer import build_png
+from image_stitch_tpu_torch.types import PngHeader
+import zlib
+
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+
+def png(seed):
+    rgba = np.random.default_rng(seed).integers(0, 256, (24, 40, 4), dtype=np.uint8)
+    raw = np.concatenate([np.zeros((24, 1), np.uint8), rgba.reshape(24, -1)], axis=1)
+    return build_png(PngHeader(width=40, height=24, bit_depth=8, color_type=6),
+                     zlib.compress(raw.tobytes()))
+
+tiles = [png(s) for s in range(4)]
+jpeg = port.concat_to_buffer({"inputs": tiles, "layout": {"columns": 2},
+                              "outputFormat": "jpeg"}, device="cpu")
+assert jpeg[:2] == b"\\xff\\xd8" and jpeg[-2:] == b"\\xff\\xd9"
+out = port.concat_to_buffer({"inputs": tiles, "layout": {"columns": 2}}, device="cpu")
+assert out[:8] == b"\\x89PNG\\r\\n\\x1a\\n" and out[-8:-4] == b"IEND"
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("image_stitch_tpu", "jax")))
+"""
+
+
+def test_running_the_port_loads_nothing_of_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", RUN], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"

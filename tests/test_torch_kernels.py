@@ -3,9 +3,10 @@ against their own plain versions.
 
 The plain pack runs against ``pack_blocks_aligned_pallas(interpret=True)``
 on the symbol streams of tests/unit/test_pallas_kernels.py. The host shim
-(csrc/host_shim.cpp, built with g++) runs the CUDA kernels' own per-block
-bodies against the plain versions. Everything is integer: the tolerance is
-zero.
+(csrc/host_shim.cpp, built with g++) runs the CUDA kernels' own per-pair
+and per-block bodies against the plain versions; ``pack_merge``'s shim runs
+each block's pairs in order with a running sum, the chain that the kernel's
+warp scan reproduces. Everything is integer: the tolerance is zero.
 """
 
 import ctypes
@@ -58,7 +59,7 @@ def test_plain_pack_matches_pallas_interpret(nb, n_sym, lw, seed):
     ref = np.asarray(pack_blocks_aligned_pallas(
         jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(starts), lw, interpret=True
     ))
-    got = K.pack_blocks_aligned(*torch_streams(codes, lens, starts), lw)
+    got = K.pack_blocks_aligned_plain(*torch_streams(codes, lens, starts), lw)
     assert got.shape == (nb, lw + 2) and got.dtype == torch.int32
     np.testing.assert_array_equal(u32(got), ref.T)
 
@@ -70,7 +71,7 @@ def test_plain_pack_matches_xla_on_over_budget_blocks():
     ref = np.asarray(J._pack_blocks_aligned(
         jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(starts), 4, transpose=True
     ))
-    got = K.pack_blocks_aligned(*torch_streams(codes, lens, starts), 4)
+    got = K.pack_blocks_aligned_plain(*torch_streams(codes, lens, starts), 4)
     np.testing.assert_array_equal(u32(got), ref)
 
 
@@ -78,52 +79,53 @@ def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data_as(ctypes.c_void_p).value
 
 
-@pytest.mark.parametrize("nb,n_sym,lw,seed", PACK_CASES + [(300, 65, 4, 5)])
-def test_kernel_bodies_match_plain(nb, n_sym, lw, seed):
-    """csrc/pack.cuh and merge.cuh, compiled by g++ into the serial host
-    shim, against the plain torch versions."""
+# (nb, n_sym, local_words, seed, clamp): PACK_CASES (odd and even slot
+# counts, AW 10 to 18), the encoder's AW 14 and 26 at 65 slots, and blocks
+# over a 4-word budget, whose clipped words overlap the next block's.
+MERGE_CASES = [c + (True,) for c in PACK_CASES] + [
+    (2000, 65, 12, 8, True), (1500, 65, 24, 8, True), (300, 65, 4, 5, False),
+]
+
+
+@pytest.mark.parametrize("nb,n_sym,lw,seed,clamp", MERGE_CASES)
+def test_kernel_bodies_match_plain(nb, n_sym, lw, seed, clamp):
+    """csrc/pack_merge.cuh, compiled by g++ into the serial host shim,
+    against ``pack_merge_plain`` (the plain pack, then the plain merge):
+    at a word count that holds the whole stream and at one that drops the
+    last three words."""
     shim = load_host_shim()
-    codes, lens, starts = random_streams(nb, n_sym, lw, seed, clamp=lw != 4)
+    codes, lens, starts = random_streams(nb, n_sym, lw, seed, clamp=clamp)
     c, ln, s = torch_streams(codes, lens, starts)
     c_np, l_np, s_np = (np.ascontiguousarray(t.numpy()) for t in (c, ln, s))
-    local = np.zeros((nb, lw + 2), np.int32)
-    shim.pack_blocks_aligned_host(_ptr(c_np), _ptr(l_np), _ptr(s_np), _ptr(local),
-                                  nb, n_sym, lw + 2)
-    plain = K.pack_blocks_aligned_plain(c, ln, s, lw)
-    np.testing.assert_array_equal(local, plain.numpy())
-    if lw == 4:
-        return  # over-budget blocks overlap, where OR and ADD differ
-    # The merge needs disjoint blocks: codes no wider than their lengths
-    # (the clamp above shortened some lengths after masking).
-    codes &= ((1 << lens.astype(np.int64)) - 1).astype(np.uint32)
-    c, ln, s = torch_streams(codes, lens, starts)
-    c_np = np.ascontiguousarray(c.numpy())
-    shim.pack_blocks_aligned_host(_ptr(c_np), _ptr(l_np), _ptr(s_np), _ptr(local),
-                                  nb, n_sym, lw + 2)
-    n_words = int(starts[-1] + lens[-1].sum()) // 32 + 1 - 3  # drops the tail
-    dense = np.zeros(n_words, np.int32)
-    shim.merge_or_host(_ptr(local), _ptr(s_np), _ptr(dense), nb, lw + 2, n_words)
-    plain_dense = K.merge_or_plain(K.pack_blocks_aligned_plain(c, ln, s, lw), s, n_words)
-    np.testing.assert_array_equal(dense, plain_dense.numpy())
+    assert (lens == 0).any() and starts[0] % 32
+    full = int(starts[-1] + lens[-1].sum()) // 32 + 1 + (lw + 2)
+    for n_words in (full, full - (lw + 2) - 3):
+        dense = np.zeros(n_words, np.int32)
+        shim.pack_merge_host(_ptr(c_np), _ptr(l_np), _ptr(s_np), _ptr(dense),
+                             nb, n_sym, lw + 2, n_words)
+        plain = K.pack_merge_plain(c, ln, s, lw, n_words)
+        np.testing.assert_array_equal(dense, plain.numpy())
+    if not clamp:
+        assert (lens.sum(axis=1) > lw * 32).any()
 
 
 def test_wrappers_check_inputs_and_count_only_launches():
     codes, lens, starts = random_streams(20, 65, 12, 6)
     c, ln, s = torch_streams(codes, lens, starts)
-    before = (K.pack_blocks_aligned.launches, K.merge_or.launches)
-    local = K.pack_blocks_aligned(c, ln, s, 12)
-    K.merge_or(local, s, 100)
-    # The CPU path runs the plain versions and launches nothing.
-    assert (K.pack_blocks_aligned.launches, K.merge_or.launches) == before
+    before = K.pack_merge.launches
+    dense = K.pack_merge(c, ln, s, 12, 100)
+    # The CPU path runs the plain version and launches nothing.
+    assert K.pack_merge.launches == before
+    assert torch.equal(dense, K.pack_merge_plain(c, ln, s, 12, 100))
     with pytest.raises(TypeError):
-        K.pack_blocks_aligned(c.to(torch.int64), ln, s, 12)
+        K.pack_merge(c.to(torch.int64), ln, s, 12, 100)
     with pytest.raises(ValueError):
-        K.pack_blocks_aligned(c[:, ::2], ln[:, ::2], s, 12)
+        K.pack_merge(c[:, ::2], ln[:, ::2], s, 12, 100)
     with pytest.raises(ValueError):
-        K.pack_blocks_aligned(c, ln, s[:-1], 12)
+        K.pack_merge(c, ln, s[:-1], 12, 100)
     with pytest.raises(ValueError):
-        K.pack_blocks_aligned(c, ln, s, 40)
+        K.pack_merge(c, ln, s, 40, 100)
     with pytest.raises(ValueError):
-        K.merge_or(local, s[:-1], 100)
+        K.pack_merge(c, ln, s, 12, -1)
     with pytest.raises(ValueError):
-        K.merge_or(local.t(), s, 100)
+        K.pack_merge(c.t(), ln.t(), s, 12, 100)

@@ -3,8 +3,11 @@
 ``image_stitch_tpu_torch.concat_to_buffer(..., device="cpu")`` (the
 kernels' plain versions) against ``image_stitch_tpu.concat_to_buffer`` with
 ``backend="jax"`` (JAX on the CPU) and ``backend="numpy"`` (the host tier):
-the bytes must be equal. Mirrors tests/unit/test_jpeg_restart.py and
-tests/unit/test_composite_device.py.
+the bytes must be equal. Mirrors tests/unit/test_jpeg_restart.py,
+tests/unit/test_composite_device.py and, for the input formats the port's
+own decoders carry (baseline and progressive JPEG, Adam7, palette,
+grayscale and 16-bit PNG, arrays), tests/integration/test_mixed_formats.py
+and test_format_matrix.py.
 """
 
 import io
@@ -17,9 +20,11 @@ import pytest
 import torch
 
 import image_stitch_tpu
+import image_stitch_tpu.types
 import image_stitch_tpu_torch
-from image_stitch_tpu.errors import StitchError
-from image_stitch_tpu.types import PositionedImage
+from image_stitch_tpu_torch.errors import StitchError
+from image_stitch_tpu_torch.types import PositionedImage
+from tests.conftest import PNGSUITE_DIR
 from tests.utils.fixtures import png_from_array
 
 torch.set_num_threads(1)
@@ -48,8 +53,18 @@ def grid_options(w, h, ri, sampling="444", quality=85, tiles=2):
     }
 
 
+def for_jax(item):
+    """The port's PositionedImage as the JAX package's, which that
+    package's isinstance checks need; any other input as it is."""
+    if isinstance(item, PositionedImage):
+        return image_stitch_tpu.types.PositionedImage(
+            item.x, item.y, item.source, z_index=item.z_index)
+    return item
+
+
 def host(opts, backend="numpy"):
-    return image_stitch_tpu.concat_to_buffer({**opts, "backend": backend})
+    inputs = [for_jax(i) for i in opts["inputs"]]
+    return image_stitch_tpu.concat_to_buffer({**opts, "inputs": inputs, "backend": backend})
 
 
 def port(opts, **kw):
@@ -87,6 +102,91 @@ def test_widths_off_the_mcu_grid_match_host(ri, sampling):
 def test_qualities_match_host(quality):
     opts = grid_options(64, 48, 1, quality=quality)
     assert port(opts) == host(opts)
+
+
+def pil_bytes(arr: np.ndarray, fmt: str, **kw) -> bytes:
+    """``arr`` encoded by PIL, the independent codec of
+    tests/integration/test_mixed_formats.py (JPEG drops alpha)."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr[:, :, :3] if fmt == "JPEG" else arr).save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def suite(*names: str) -> list[str]:
+    return [os.path.join(PNGSUITE_DIR, n) for n in names]
+
+
+def input_case(name: str) -> dict:
+    """Options of one input-format case: the inputs and the layout."""
+    g = [make_image(32, 32, seed=s) for s in range(4)]
+    if name == "jpeg_baseline":  # test_mixed_formats::test_interleaved_formats_2x2
+        inputs = [pil_bytes(g[0], "PNG"), pil_bytes(g[1], "JPEG", quality=90),
+                  pil_bytes(g[2], "JPEG", quality=90, subsampling=2), pil_bytes(g[3], "PNG")]
+        return {"inputs": inputs, "layout": {"columns": 2}}
+    if name == "jpeg_owned":  # test_mixed_with_owned_jpeg_tier
+        return {"inputs": [pil_bytes(g[0], "JPEG", quality=85, subsampling=2),
+                           pil_bytes(g[1], "PNG")],
+                "layout": {"columns": 2}, "decoderOptions": {"forceOwned": True}}
+    if name == "jpeg_progressive":  # test_mixed_progressive_jpeg_input
+        jpeg = pil_bytes(g[2], "JPEG", quality=85, progressive=True)
+        return {"inputs": [jpeg, jpeg], "layout": {"columns": 1},
+                "decoderOptions": {"forceOwned": True}}
+    if name == "jpeg_short_beside_png":  # test_mixed_sizes_transparent_padding
+        return {"inputs": [pil_bytes(make_image(24, 60, seed=1), "PNG"),
+                           pil_bytes(make_image(24, 30, seed=2), "JPEG", quality=90)],
+                "layout": {"columns": 2}}
+    if name == "png16_beside_jpeg":  # test_mixed_16bit_png_with_jpeg
+        rng = np.random.default_rng(3)
+        png16 = png_from_array(rng.integers(0, 65536, (16, 16, 4), dtype=np.uint16),
+                               bit_depth=16)
+        return {"inputs": [png16, pil_bytes(make_image(16, 16, seed=2), "JPEG", quality=90)],
+                "layout": {"columns": 2}}
+    if name == "arrays":  # uint8 RGBA and RGB, uint16 RGB arrays
+        rng = np.random.default_rng(4)
+        return {"inputs": [g[0], g[1][:, :, :3].copy(),
+                           rng.integers(0, 65536, (32, 32, 3), dtype=np.uint16), g[3]],
+                "layout": {"columns": 2}}
+    # PngSuite (test_format_matrix's classes): interlaced, palette,
+    # grayscale and 16-bit inputs, each with its Adam7 twin.
+    files = {
+        "adam7": ("basi0g01.png", "basi2c08.png", "basi3p08.png", "basi6a16.png"),
+        "palette": ("basn3p01.png", "basn3p04.png", "basn3p08.png", "basi3p02.png"),
+        "grayscale": ("basn0g02.png", "basn0g08.png", "basn4a08.png", "basi0g04.png"),
+        "png16": ("basn0g16.png", "basn2c16.png", "basn4a16.png", "basn6a16.png"),
+    }[name]
+    return {"inputs": suite(*files), "layout": {"columns": 2}}
+
+
+INPUT_CASES = ["jpeg_baseline", "jpeg_owned", "jpeg_progressive", "jpeg_short_beside_png",
+               "png16_beside_jpeg", "arrays", "adam7", "palette", "grayscale", "png16"]
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpeg"])
+@pytest.mark.parametrize("name", INPUT_CASES)
+def test_input_formats_match_jax(name, fmt):
+    """Each input format through the port's own decoders, to PNG and to
+    JPEG (restart rows 1), equal to the JAX package's bytes."""
+    opts = {**input_case(name), "outputFormat": fmt, "jpegRestartIntervalRows": 1,
+            "bandHeight": 16}
+    assert port(opts) == host(opts)
+
+
+def test_heic_input_fails_like_jax():
+    """A HEIC input reaches the port's own HEIC plugin: with no decode
+    backend installed both packages raise, with the same message; with one,
+    both decode it."""
+    path = os.path.join(REPO, "tests", "fixtures", "heic", "fixture_64x48.heic")
+    opts = {"inputs": [path, path], "layout": {"columns": 2}}
+    try:
+        want = host(opts)
+    except image_stitch_tpu.errors.StitchError as e:
+        with pytest.raises(StitchError) as got:
+            port(opts)
+        assert str(got.value) == str(e)
+    else:
+        assert port(opts) == want
 
 
 def test_positioned_alpha_matches_host():
@@ -241,7 +341,7 @@ def test_slice_runs_without_jax():
     code = (
         "import sys, numpy as np\n"
         "import image_stitch_tpu_torch\n"
-        "from image_stitch_tpu.types import PositionedImage\n"
+        "from image_stitch_tpu_torch.types import PositionedImage\n"
         "from tests.utils.fixtures import png_from_array\n"
         "img = np.full((32, 40, 4), 200, np.uint8)\n"
         "out = image_stitch_tpu_torch.concat_to_buffer({'inputs': [png_from_array(img)] * 2,"
