@@ -10,7 +10,8 @@ path. Phases, each printing its lines before the last:
    CUDA versions; exits non-zero without a usable CUDA device;
 2. build: the hand-written kernels (image_stitch_tpu_torch/csrc) with nvcc
    for sm_90a, one process per source, and the port's host C++ library
-   (image_stitch_tpu_torch/native) with g++, timed as set-up;
+   (image_stitch_tpu_torch/native) with g++, timed as set-up; then each
+   kernel's registers, spills and SASS loop sizes (``sass_report``);
 3. kernels against their plain torch versions on the card, at the main
    paths' shapes: pack_merge on one 256 x 8192 4:4:4 band (98,304 blocks)
    of random symbol streams with zero-length slots, an odd slot count,
@@ -18,10 +19,14 @@ path. Phases, each printing its lines before the last:
    block, into a stream that holds every word and one that drops the last
    three; filter select on 256 x 8192 RGBA8 and 256 x 4096 and 256 x 8192
    RGBA16 bands of random bytes after a non-zero carry row, on a band of
-   zeros (every filter ties and None must win) and on rows narrower than
-   bpp; compositing of 50 random segments of partial alpha into a 256 x
-   8192 band, and the exact rational tie case, which must count ties.
-   Outputs must be equal;
+   zeros (every filter ties and None must win), on rows narrower than bpp,
+   on 0/max extremes and bytes of 0x80, on rows of n % 16 == 4 and 8, on a
+   band that starts 4 B past a 16 B line and on RGB8 rows at bpp 3, so
+   that every kernel of csrc/filter.cu runs (``FILTER_VARIANTS``);
+   compositing of 50 and of 500 random segments of partial alpha into a
+   256 x 8192 band, 300 into a 100 x 1001 band (off the tile), the exact
+   rational tie case, which must count ties, and that tie across a tile
+   corner beside 40 segments. Outputs must be equal;
 4. main paths, through ``image_stitch_tpu_torch.concat_to_buffer(...,
    device="cuda")``, each output byte-identical to the same call with
    ``device="cpu"`` (the plain torch versions; the CPU tests hold that path
@@ -43,7 +48,10 @@ path. Phases, each printing its lines before the last:
 5. timing: per-band time of each JPEG stage, of pack_merge against its
    plain version (the plain pack, then the plain merge) and against
    ``index_add_`` of the same words (the one PyTorch call that computes the
-   merge), and of each PNG-path kernel against its plain version: CUDA
+   merge), and of each PNG-path kernel against its plain version
+   (compositing on three bands: 50 random segments, the positioned runs'
+   most crowded real band, 500 random segments), each with its bytes
+   bound: CUDA
    events around each call (median and spread over repetitions after a
    warm-up), and for the hand kernels and ``index_add_`` also the device
    time per call from torch.profiler, which leaves out host launch time
@@ -81,6 +89,7 @@ GRID16 = 4
 SIDE = 2048
 SPRITES = 50
 SPRITE = 128
+CROWDED = 500  # segments of the crowded synthetic compositing band
 # H100 SXM device memory rate (NVIDIA data sheet), for the bytes bound.
 HBM_BYTES_PER_S = 3.35e12
 
@@ -279,10 +288,14 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
 
 
-def filter_inputs(rng: np.random.Generator, dtype, dev: torch.device, width: int = GRID * TILE):
-    """A BAND_ROWS x width RGBA band of random samples on the card and a
-    random carry row."""
-    band = rng.integers(0, np.iinfo(dtype).max + 1, (BAND_ROWS, width, 4), dtype=dtype)
+def filter_inputs(rng: np.random.Generator, dtype, dev: torch.device, width: int = GRID * TILE,
+                  extremes: bool = False):
+    """A BAND_ROWS x width RGBA band of random samples (or of 0 and the
+    maximum only) on the card and a random carry row."""
+    top = np.iinfo(dtype).max
+    band = rng.integers(0, top + 1, (BAND_ROWS, width, 4), dtype=dtype)
+    if extremes:
+        band = ((band & 1) * top).astype(dtype)
     t = torch.from_numpy(band.view(np.uint8)).to(dev)
     if dtype == np.uint16:
         t = t.view(torch.uint16)
@@ -297,16 +310,20 @@ def check_png_kernels(dev: torch.device) -> dict:
 
     rng = np.random.default_rng(SEED + 1)
     errs = {"filter_select": 0, "composite_segments": 0}
+    variants = set()
 
     def filt(band, prev, bpp, what):
         types, filtered = K.filter_select(band, prev, bpp)
         p_types, p_filtered = K.filter_select_plain(band, prev, bpp)
         torch.cuda.synchronize()
+        variant = K.FILTER_VARIANTS[K.filter_variant(
+            filtered.shape[1], bpp, band.data_ptr(), prev.data_ptr(), filtered.data_ptr())]
+        variants.add(variant)
         err = max(max_err(types, p_types), max_err(filtered, p_filtered))
         errs["filter_select"] = max(errs["filter_select"], err)
         if err:
-            fail(f"filter_select != plain on {what}: max |diff| {err}")
-        say(f"filter_select == plain on {what}: {band.shape[0]} rows of "
+            fail(f"filter_select ({variant}) != plain on {what}: max |diff| {err}")
+        say(f"filter_select ({variant}) == plain on {what}: {band.shape[0]} rows of "
             f"{filtered.shape[1]} B, bpp {bpp}, types used {torch.bincount(types.long(), minlength=5).tolist()}")
         return types
 
@@ -324,6 +341,28 @@ def check_png_kernels(dev: torch.device) -> dict:
     narrow = torch.from_numpy(rng.integers(0, 256, (16, 3), dtype=np.uint8)).to(dev)
     filt(narrow, torch.from_numpy(rng.integers(0, 256, 3, dtype=np.uint8)).to(dev), 4,
          "rows of 3 B at bpp 4")
+    # The word kernel's edges: 0/max extremes (Paeth's widest differences)
+    # and 0x80 (scores 128) at full width; rows of n % 16 == 4 and 8 (4 B
+    # loads, a partial last chunk); rows that start 4 B past a 16 B line;
+    # bpp 3 (the byte kernel at full width).
+    for dtype, bpp, width in ((np.uint8, 4, GRID * TILE), (np.uint16, 8, GRID16 * TILE)):
+        band, prev = filter_inputs(rng, dtype, dev, width, extremes=True)
+        filt(band, prev, bpp, f"0/{np.iinfo(dtype).max} extremes")
+    filt(torch.full((BAND_ROWS, GRID * TILE, 4), 0x80, dtype=torch.uint8, device=dev),
+         torch.full((GRID * TILE * 4,), 0x80, dtype=torch.uint8, device=dev), 4, "bytes of 0x80")
+    for dtype, bpp, width in ((np.uint8, 4, GRID * TILE + 1), (np.uint16, 8, GRID16 * TILE + 1)):
+        band, prev = filter_inputs(rng, dtype, dev, width)
+        filt(band, prev, bpp, f"rows of {band[0].nbytes} B ({band[0].nbytes % 16} past 16 B)")
+    band, prev = filter_inputs(rng, np.uint8, dev)
+    store = torch.empty(band.numel() + 4, dtype=torch.uint8, device=dev)
+    shifted = store[4:].view(band.shape)
+    shifted.copy_(band)
+    filt(shifted, prev, 4, "a band that starts 4 B past a 16 B line")
+    rgb = torch.from_numpy(rng.integers(0, 256, (BAND_ROWS, GRID * TILE, 3), dtype=np.uint8))
+    filt(rgb.to(dev), torch.from_numpy(rng.integers(0, 256, GRID * TILE * 3, dtype=np.uint8)).to(dev),
+         3, "RGB8 rows at bpp 3")
+    if variants != set(K.FILTER_VARIANTS):
+        fail(f"filter_select variants reached {sorted(variants)}, not all of {K.FILTER_VARIANTS}")
 
     def comp(metas, srcs, bg, h, w, what):
         err, ties = check_composite(metas, srcs, bg, h, w, what)
@@ -341,6 +380,22 @@ def check_png_kernels(dev: torch.device) -> dict:
     tie_srcs = torch.from_numpy(np.concatenate([base.reshape(-1), top.reshape(-1)])).to(dev)
     if comp(tie_metas, tie_srcs, (0, 0, 0, 0), 8, 8, "the exact rational tie") <= 0:
         fail("composite_segments counted no tie on the exact rational tie case")
+    # Tile culling: 500 segments (two culling chunks) into the full band; a
+    # band width off the 128-column tile and the 16 B line; the tie across
+    # a tile corner beside other segments, each of its pixels counted once.
+    metas, srcs = (torch.from_numpy(a).to(dev) for a in
+                   random_segments(rng, CROWDED, BAND_ROWS, GRID * TILE))
+    comp(metas, srcs, (9, 8, 7, 255), BAND_ROWS, GRID * TILE, f"{CROWDED} random segments")
+    metas, srcs = (torch.from_numpy(a).to(dev) for a in random_segments(rng, 300, 100, 1001))
+    comp(metas, srcs, (1, 2, 3, 4), 100, 1001, "300 segments into a 100 x 1001 band")
+    metas, srcs = random_segments(rng, 40, BAND_ROWS, 100)
+    off = srcs.size
+    metas = np.concatenate([metas, [[11, 120, 10, 20, off, 80], [11, 120, 10, 20, off + 800, 80]]])
+    srcs = np.concatenate([srcs, np.tile(base[0, 0], 200), np.tile(top[0, 0], 200)])
+    ties = comp(torch.from_numpy(metas).to(dev), torch.from_numpy(srcs).to(dev), (0, 0, 0, 0),
+                BAND_ROWS, 400, "the tie across a tile corner beside 40 segments")
+    if ties < 200:
+        fail(f"composite_segments counted {ties} ties, fewer than the tie case's 200 pixels")
     return errs
 
 
@@ -424,12 +479,13 @@ def add_launches(total: dict, launches: dict) -> None:
 
 
 def main_paths(cases: list[tuple[str, dict, float, tuple[str, ...]]],
-               dev: torch.device) -> tuple[dict, int]:
+               dev: torch.device) -> tuple[dict, int, tuple]:
     """Each (name, options, megapixels, kernels that must launch) case run
     on its own counts and held byte for byte against the CPU path. The
     most crowded band that the positioned runs hand to composite_segments
     is held against its plain version afterwards. Returns (launches summed
-    over the runs, that check's max |diff|)."""
+    over the runs, that check's max |diff|, that band's (metas, srcs, bg,
+    h, w))."""
     from image_stitch_tpu_torch.ops import composite_device
 
     real = composite_device.composite_segments
@@ -452,34 +508,40 @@ def main_paths(cases: list[tuple[str, dict, float, tuple[str, ...]]],
         fail("no positioned band reached composite_segments")
     metas, srcs, bg, h, w = seen[0]
     err, _ = check_composite(metas, srcs, bg, h, w, "the positioned path's most crowded band")
-    return total, err
+    return total, err, seen[0]
 
 
-def png_kernel_timing(dev: torch.device) -> tuple[dict, dict]:
+def png_kernel_timing(dev: torch.device, real_band: tuple) -> tuple[dict, dict]:
     """Device time of filter select (8-bit and 16-bit bands) and of
-    compositing (50 segments), kernel against plain version; and the bytes
-    each must move on the 8-bit band and the 50 segments."""
+    compositing on three bands (50 random segments into 256 x 8192, the
+    positioned path's most crowded real band, and CROWDED random segments
+    into 256 x 8192), kernel against plain version; and the bytes each must
+    move (the filter's on the 8-bit band, compositing's on each band)."""
     from image_stitch_tpu_torch.ops import kernels as K
 
     rng = np.random.default_rng(SEED + 2)
-    t = {}
+    t, moved = {}, {}
     for dtype, bpp, tag in ((np.uint8, 4, "filter8"), (np.uint16, 8, "filter16")):
         band, prev = filter_inputs(rng, dtype, dev)
-        if tag == "filter8":
-            # Read the band and the carry row, write the filtered band and
-            # the row types.
-            filter_moved = 2 * band.nbytes + prev.nbytes + band.shape[0]
+        # Read the band and the carry row, write the filtered band and the
+        # row types.
+        moved[tag] = 2 * band.nbytes + prev.nbytes + band.shape[0]
         t[f"{tag}_kernel"] = time_cuda(lambda: K.filter_select(band, prev, bpp), reps=50)
         t[f"{tag}_device"] = device_time(lambda: K.filter_select(band, prev, bpp))
         t[f"{tag}_plain"] = time_cuda(lambda: K.filter_select_plain(band, prev, bpp))
-    metas, srcs = (torch.from_numpy(a).to(dev) for a in
-                   random_segments(rng, SPRITES, BAND_ROWS, GRID * TILE))
-    args = (metas, srcs, (0, 0, 0, 0), BAND_ROWS, GRID * TILE)
-    t["composite_kernel"] = time_cuda(lambda: K.composite_segments(*args), reps=50)
-    t["composite_device"] = device_time(lambda: K.composite_segments(*args))
-    t["composite_plain"] = time_cuda(lambda: K.composite_segments_plain(*args))
-    return t, {"filter_select": filter_moved,
-               "composite_segments": metas.nbytes + srcs.nbytes + BAND_ROWS * GRID * TILE * 4 + 4}
+    bands = {"composite": (*(torch.from_numpy(a).to(dev) for a in random_segments(
+                 rng, SPRITES, BAND_ROWS, GRID * TILE)), (0, 0, 0, 0), BAND_ROWS, GRID * TILE),
+             "composite_real": real_band,
+             "composite_crowded": (*(torch.from_numpy(a).to(dev) for a in random_segments(
+                 rng, CROWDED, BAND_ROWS, GRID * TILE)), (0, 0, 0, 0), BAND_ROWS, GRID * TILE)}
+    for tag, args in bands.items():
+        metas, srcs, _bg, h, w = args
+        t[f"{tag}_kernel"] = time_cuda(lambda: K.composite_segments(*args), reps=50)
+        t[f"{tag}_device"] = device_time(lambda: K.composite_segments(*args))
+        t[f"{tag}_plain"] = time_cuda(lambda: K.composite_segments_plain(*args), reps=5)
+        # Read the metas and the sources, write the band and the tie count.
+        moved[tag] = metas.nbytes + srcs.nbytes + h * w * 4 + 4
+    return t, moved
 
 
 def band_timing(tiles: list[np.ndarray], dev: torch.device) -> tuple[dict, dict, dict]:
@@ -662,6 +724,12 @@ def main() -> None:
     if get_native_lib() is None:
         fail("the port's host C++ library (image_stitch_tpu_torch/native) did not build")
     say(f"build: the port's host C++ library loaded in {time.perf_counter() - t0:.2f} s (set-up)")
+    from image_stitch_tpu_torch.sass_report import report
+
+    t0 = time.perf_counter()
+    for line in report():
+        say(line)
+    say(f"sass report (nvcc -Xptxas -v, cuobjdump) in {time.perf_counter() - t0:.2f} s")
 
     # 3. Kernels against their plain versions at the main paths' shapes.
     errs = check_kernels(dev)
@@ -689,7 +757,7 @@ def main() -> None:
                   "outputFormat": "png", "bandHeight": BAND_ROWS}
     mp_grid, mp_side = GRID * GRID * TILE * TILE / 1e6, SIDE * SIDE / 1e6
     mp_small = SMALL * SMALL * TILE * TILE / 1e6
-    launches, comp_err = main_paths([
+    launches, comp_err, real_band = main_paths([
         (f"grid -> JPEG ri=1 444 q{QUALITY}", grid_jpeg, mp_grid, ("pack_merge",)),
         (f"2x2 grid -> JPEG ri=0 444 q{QUALITY}", {**small_jpeg, "jpegRestartIntervalRows": 0},
          mp_small, ("pack_merge",)),
@@ -710,13 +778,21 @@ def main() -> None:
     errs = {k: max(v, band_errs.get(k, 0)) for k, v in errs.items()}
     for name, v in t.items():
         say(f"band 256x8192 444 ri=1 q{QUALITY} {name}: {fmt(v)} [{card}]")
-    pt, png_moved = png_kernel_timing(dev)
+    pt, png_moved = png_kernel_timing(dev, real_band)
     t.update(pt)
     moved.update(png_moved)
+    rm, _, _, rh, rw = real_band
     for name, what in (("filter8", "RGBA8 band 256x32768 B"), ("filter16", "RGBA16 band 256x65536 B"),
-                       ("composite", f"{SPRITES} segments into 256x8192")):
+                       ("composite", f"{SPRITES} segments into 256x8192"),
+                       ("composite_real", f"the positioned path's {rm.shape[0]} segments "
+                                          f"into {rh}x{rw}"),
+                       ("composite_crowded", f"{CROWDED} segments into 256x8192")):
         for which in ("kernel", "device", "plain"):
             say(f"{name}_{which} ({what}): {fmt(t[f'{name}_{which}'])} [{card}]")
+        if name in moved:
+            b = bound_ms(moved[name])
+            say(f"{name} bound: {moved[name]} B = {b:.4f} ms; device time at "
+                f"{100 * b / t[f'{name}_device']['median']:.1f}% of it [{card}]")
     for name, opts, mp in ((f"grid_jpeg 67.1 MP ri=1 q{QUALITY}", grid_jpeg, mp_grid),
                            ("grid_png 67.1 MP level 6", grid_png, mp_grid),
                            (f"positioned_png {mp_side:.1f} MP", positioned, mp_side)):
@@ -753,7 +829,7 @@ def main() -> None:
          "replaces": "image_stitch_tpu/ops/pallas_kernels.py:33",
          "launches": launches["filter_select"], "max_abs_err": errs["filter_select"],
          "ms": t["filter8_device"]["median"], "plain_ms": t["filter8_plain"]["median"],
-         "bound_ms": bound_ms(moved["filter_select"]), "bound_by": "bytes",
+         "bound_ms": bound_ms(moved["filter8"]), "bound_by": "bytes",
          "library_ms": None},
         {"name": "composite_segments", "route": "cuda",
          "source": "image_stitch_tpu_torch/csrc/composite.cu",
@@ -761,7 +837,7 @@ def main() -> None:
          "launches": launches["composite_segments"],
          "max_abs_err": errs["composite_segments"],
          "ms": t["composite_device"]["median"], "plain_ms": t["composite_plain"]["median"],
-         "bound_ms": bound_ms(moved["composite_segments"]), "bound_by": "bytes",
+         "bound_ms": bound_ms(moved["composite"]), "bound_by": "bytes",
          "library_ms": None},
     ]
     for k in kernels:

@@ -134,7 +134,7 @@ def load_cuda_kernels() -> ctypes.CDLL:
         lib.pack_merge_launch.restype = _I
         lib.pack_merge_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.filter_select_launch.restype = _I
-        lib.filter_select_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.filter_select_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.composite_segments_launch.restype = _I
         lib.composite_segments_launch.argtypes = [_P, _I, _P, _U32, _P, _I, _I, _P, _P]
         _loaded["cuda"] = lib
@@ -165,7 +165,13 @@ def load_host_shim() -> ctypes.CDLL:
         lib.pack_merge_host.restype = None
         lib.pack_merge_host.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I]
         lib.filter_select_host.restype = None
-        lib.filter_select_host.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I]
+        lib.filter_select_host.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I]
+        lib.filter_words_host.restype = None
+        lib.filter_words_host.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I]
+        lib.composite_divmod_host.restype = None
+        lib.composite_divmod_host.argtypes = [_P, _P, _P, _P, _I]
+        lib.alpha_over_host.restype = _I
+        lib.alpha_over_host.argtypes = [_P, _P, _I]
         lib.composite_segments_host.restype = _I
         lib.composite_segments_host.argtypes = [_P, _I, _P, _P, _P, _I, _I]
         _loaded["host"] = lib

@@ -176,6 +176,22 @@ pack_merge.launches = 0
 
 # Longest row the kernel takes: its int32 sums stay below 128 * n.
 MAX_FILTER_ROW = 1 << 24
+# The kernels of csrc/filter.cu, by the variant number its launcher takes:
+# the byte kernel, and the word kernel for bpp 4 and 8 with 4 B or 16 B
+# loads.
+FILTER_VARIANTS = ("bytes", "word4", "word4_vec16", "word8", "word8_vec16")
+
+
+def filter_variant(n: int, bpp: int, *addresses: int) -> int:
+    """The csrc/filter.cu kernel for rows of ``n`` bytes at ``bpp`` whose
+    band, carry row and output start at ``addresses``: the word kernel where
+    bpp is 4 or 8 and rows and pointers are 4 B aligned, with 16 B loads
+    where they are 16 B aligned; else the byte kernel. An index into
+    ``FILTER_VARIANTS``."""
+    if bpp not in (4, 8) or n % 4 or any(a % 4 for a in addresses):
+        return 0
+    vec = n % 16 == 0 and not any(a % 16 for a in addresses)
+    return (1 if bpp == 4 else 3) + int(vec)
 
 
 def png_bytes(band: torch.Tensor) -> torch.Tensor:
@@ -232,8 +248,9 @@ def filter_select(band: torch.Tensor, prev: torch.Tensor,
     """PNG filter select over a band: ``band`` (H, ...) contiguous, uint8
     bytes or uint16 samples (read big-endian), N bytes a row; ``prev`` the
     (N,) uint8 carry row (zeros at the image start). Returns (types (H,)
-    uint8, filtered (H, N) uint8). Launches csrc/filter.cu for CUDA tensors;
-    the plain version for CPU tensors."""
+    uint8, filtered (H, N) uint8). Launches csrc/filter.cu for CUDA tensors
+    (the kernel ``filter_variant`` picks); the plain version for CPU
+    tensors."""
     device = band.device
     if band.dtype not in (torch.uint8, torch.uint16):
         raise TypeError(f"band: expected uint8 or uint16, got {band.dtype}")
@@ -259,9 +276,10 @@ def filter_select(band: torch.Tensor, prev: torch.Tensor,
     if h == 0:
         return types, filtered
     lib = load_cuda_kernels()
+    ptrs = (band.data_ptr(), prev.data_ptr(), filtered.data_ptr())
     _launch(
-        lib.filter_select_launch, band.data_ptr(), prev.data_ptr(), filtered.data_ptr(),
-        types.data_ptr(), h, n, bpp, int(band.dtype == torch.uint16), _stream(device),
+        lib.filter_select_launch, *ptrs, types.data_ptr(), h, n, bpp,
+        int(band.dtype == torch.uint16), filter_variant(n, bpp, *ptrs), _stream(device),
     )
     filter_select.launches += 1
     return types, filtered

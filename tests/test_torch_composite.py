@@ -210,3 +210,146 @@ def test_wrapper_checks_inputs_and_counts_only_launches():
         K.composite_segments(metas, srcs, (0, 0, 256, 0), 64, 96)
     with pytest.raises(ValueError):
         K.composite_segments(metas, srcs, (0, 0, 0, 0), -1, 96)
+
+
+def shim_composite(metas, srcs, bg, h, w):
+    shim = load_host_shim()
+    metas = np.ascontiguousarray(metas, np.int64).reshape(-1, K.META_COLS)
+    srcs = np.ascontiguousarray(srcs) if srcs.size else np.zeros(4, np.uint8)
+    bg = np.asarray(bg, np.uint8)
+    out = np.zeros((h, w, 4), np.uint8)
+    ties = shim.composite_segments_host(_ptr(metas), len(metas), _ptr(srcs), _ptr(bg), _ptr(out),
+                                        h, w)
+    return out, ties
+
+
+def placed(rng, specs, alpha="ramp"):
+    """Segments at the given (y0, x0, h, w), random colours, alpha a 30-230
+    ramp, random, or opaque."""
+    segs = []
+    for y0, x0, h, w in specs:
+        s = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+        if alpha == "ramp" and w:
+            s[:, :, 3] = np.linspace(30, 230, w).astype(np.uint8)[None, :]
+        elif alpha == "opaque":
+            s[:, :, 3] = 255
+        segs.append((s, y0, x0))
+    return segs
+
+
+def culling_case(name):
+    """(segments, band height, band width) of one tile-culling case; tiles
+    are 16 rows x 128 columns, culled 256 segments at a time."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "straddle":  # across tile rows and columns, and the corner
+        return placed(rng, [(10, 120, 12, 20), (0, 100, 40, 200), (15, 127, 2, 2),
+                            (30, 250, 10, 6), (16, 128, 16, 128)]), 40, 300
+    if name == "thin":  # one row, one column, one pixel, on tile edges
+        return placed(rng, [(15, 0, 1, 300), (0, 127, 48, 1), (16, 128, 1, 1), (47, 299, 1, 1),
+                            (5, 0, 1, 1)]), 48, 300
+    if name == "ragged":  # band sizes off the tile and the 16 B line
+        return placed(rng, [(0, 0, 37, 333), (20, 300, 17, 33), (3, 7, 30, 250)],
+                      "random"), 37, 333
+    if name == "many":  # 600 segments: three culling chunks in z order
+        specs = [(int(rng.integers(0, 40)), int(rng.integers(0, 250)), 0, 0) for _ in range(600)]
+        specs = [(y, x, int(rng.integers(1, 41 - y)), int(rng.integers(1, 251 - x)))
+                 for y, x, _, _ in specs]
+        return placed(rng, specs, "random"), 41, 251
+    if name == "z-order":  # opaque and partial segments stacked: order decides
+        segs = placed(rng, [(0, 0, 20, 150), (5, 60, 20, 150), (2, 30, 10, 200)], "opaque")
+        segs += placed(rng, [(4, 50, 12, 140), (0, 0, 24, 200)])
+        segs += placed(rng, [(8, 100, 6, 40)], "opaque")
+        return segs, 26, 240
+    if name == "zero-area":  # no rows or no columns: touch nothing
+        return placed(rng, [(3, 4, 0, 10), (3, 4, 10, 0), (0, 0, 0, 0), (2, 2, 5, 5),
+                            (6, 126, 0, 5)]), 16, 140
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("bg", [(0, 0, 0, 0), (12, 200, 7, 255), (90, 80, 70, 128)])
+@pytest.mark.parametrize("name", ["straddle", "thin", "ragged", "many", "z-order", "zero-area"])
+def test_tile_walk_matches_plain(name, bg):
+    """csrc/composite.cuh's tile culling and run blend, walked by the host
+    shim tile by tile and chunk by chunk as the card's blocks walk them,
+    against the plain version: band and tie count."""
+    segs, h, w = culling_case(name)
+    metas, srcs = pack(segs)
+    out, ties = shim_composite(metas, srcs, bg, h, w)
+    band, p_ties = K.composite_segments(torch.from_numpy(metas), torch.from_numpy(srcs), bg, h, w)
+    np.testing.assert_array_equal(out, band.numpy())
+    assert ties == int(p_ties)
+    if name == "many":
+        assert len(segs) > 2 * 256
+
+
+def test_z_order_decides():
+    """Swapping two overlapping segments changes the band: the culled list
+    keeps z order."""
+    segs, h, w = culling_case("z-order")
+    a, _ = shim_composite(*pack(segs), (0, 0, 0, 0), h, w)
+    b, _ = shim_composite(*pack(segs[::-1]), (0, 0, 0, 0), h, w)
+    assert not np.array_equal(a, b)
+
+
+def _px(r, g, b, a):
+    return (np.asarray(r, np.uint32) | np.asarray(g, np.uint32) << 8
+            | np.asarray(b, np.uint32) << 16 | np.asarray(a, np.uint32) << 24)
+
+
+def test_divmod_is_exact_next_to_every_multiple():
+    """composite_divmod (a 32-bit reciprocal of den a little below 2^32 /
+    den, a high multiply, then one step up) against integer divmod for
+    every den of the "over" (255 .. 65,025) at num = k den - 1, k den and
+    k den + 1, where the estimate of the quotient falls one short or not,
+    and at random num up to 255 den."""
+    rng = np.random.default_rng(5)
+    den = np.arange(255, 255 * 255 + 1, dtype=np.int32)
+    nums = [np.minimum(np.maximum(k * den + delta, 0), 255 * den)
+            for k in range(0, 256, 15) for delta in (-1, 0, 1)]
+    nums += [(rng.random(den.shape) * (255 * den + 1)).astype(np.int32) for _ in range(4)]
+    shim = load_host_shim()
+    for num in nums:
+        num = np.ascontiguousarray(num, np.int32)
+        q, r = np.zeros_like(num), np.zeros_like(num)
+        shim.composite_divmod_host(_ptr(num), _ptr(den), _ptr(q), _ptr(r), num.size)
+        np.testing.assert_array_equal(q, num // den)
+        np.testing.assert_array_equal(r, num % den)
+
+
+def test_one_division_over_every_alpha_pair():
+    """alpha_over_px (one division per channel from a float reciprocal and
+    a +-1 correction) against the two-division formula of
+    _alpha_over_window_u8 over every (As, Ad) pair, each with 24 colour
+    pixels: 72 (s, d) channel pairs, extremes included, and s = d and
+    s = d +- 1, where num is a multiple of den or next to one and the float
+    estimate of the quotient is one off in either direction. Ties as well."""
+    rng = np.random.default_rng(11)
+    a_s, a_d = (v.reshape(-1) for v in np.meshgrid(np.arange(256), np.arange(256), indexing="ij"))
+    fixed = np.array([[0, 0], [255, 255], [0, 255], [255, 0], [128, 127], [1, 254]])
+    for rep in range(24):
+        if rep < 2:
+            pairs = [fixed[(3 * rep + c) % len(fixed)] for c in range(3)]
+            s_rgb = [np.full(a_s.shape, p[0]) for p in pairs]
+            d_rgb = [np.full(a_s.shape, p[1]) for p in pairs]
+        else:
+            s_rgb = [rng.integers(0, 256, a_s.shape) for _ in range(3)]
+            step = (rep % 4) - 1  # -1, 0, 1: d next to or equal to s; 2: random
+            d_rgb = [np.clip(sc + step, 0, 255) if step < 2 else rng.integers(0, 256, a_s.shape)
+                     for sc in s_rgb]
+        s = _px(*s_rgb, a_s)
+        d = _px(*d_rgb, a_d)
+        got = d.copy()
+        ties = load_host_shim().alpha_over_host(_ptr(s), _ptr(got), s.size)
+        wd = a_d * (255 - a_s)
+        den = 255 * a_s + wd
+        blend = (a_s > 0) & (a_s < 255)
+        den_safe = np.maximum(den, 1)
+        want_rgb, tie = [], np.zeros(a_s.shape, bool)
+        for sc, dc in zip(s_rgb, d_rgb):
+            num = sc * 255 * a_s + dc * wd
+            q = (2 * num + den_safe) // (2 * den_safe)
+            tie |= blend & ((2 * num) % (2 * den_safe) == den_safe)
+            want_rgb.append(np.where(a_s == 255, sc, np.where(blend, q, dc)))
+        new_a = np.where(a_s == 255, 255, np.where(blend, (2 * den + 255) // 510, a_d))
+        np.testing.assert_array_equal(got, _px(*want_rgb, new_a))
+        assert ties == int(tie.sum())

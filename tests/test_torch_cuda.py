@@ -87,23 +87,71 @@ def test_slice_matches_host(cuda, ri, sampling):
     assert counters.bands > 0
 
 
-@pytest.mark.parametrize("shape,dtype,bpp", [((37, 11, 4), np.uint8, 4),
-                                             ((256, 2048, 4), np.uint16, 8),
-                                             ((9, 3), np.uint8, 4)])
-def test_filter_select_matches_plain(cuda, shape, dtype, bpp):
-    rng = np.random.default_rng(shape[0])
-    band = rng.integers(0, np.iinfo(dtype).max + 1, shape, dtype=dtype)
-    t = torch.from_numpy(band.view(np.uint8)).to(cuda)
+def filter_band(cuda, shape, dtype, seed, kind="random", offset=0):
+    """A band of ``shape`` on the card whose first byte lies ``offset``
+    bytes past a 256 B aligned allocation, and a non-zero carry row."""
+    rng = np.random.default_rng(seed)
+    top = np.iinfo(dtype).max
+    band = rng.integers(0, top + 1, shape, dtype=dtype)
+    if kind == "extremes":
+        band = ((band & 1) * top).astype(dtype)
+    raw = band.view(np.uint8).reshape(-1)
+    store = torch.zeros(raw.size + offset, dtype=torch.uint8, device=cuda)
+    store[offset:] = torch.from_numpy(raw).to(cuda)
+    t = store[offset:].view(band.view(np.uint8).shape)
     if dtype == np.uint16:
         t = t.view(torch.uint16)
     n = band[0].nbytes
-    prev = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).to(cuda)
-    launches = K.filter_select.launches
-    types, filtered = K.filter_select(t, prev, bpp)
-    p_types, p_filtered = K.filter_select_plain(t, prev, bpp)
-    torch.cuda.synchronize()
-    assert torch.equal(types, p_types) and torch.equal(filtered, p_filtered)
-    assert K.filter_select.launches == launches + 1
+    prev = torch.from_numpy(rng.integers(1, 256, n, dtype=np.uint8)).to(cuda)
+    return t, prev
+
+
+# Shapes 3.. reach every kernel of csrc/filter.cu: rows with n % 16 of 4, 8
+# and 12 (4 B loads, a partial last chunk), rows longer than the registers
+# hold (re-read from L2), bpp 3, and rows that start 4 B past a 16 B line.
+@pytest.mark.parametrize("shape,dtype,bpp", [((37, 11, 4), np.uint8, 4),
+                                             ((256, 2048, 4), np.uint16, 8),
+                                             ((9, 3), np.uint8, 4),
+                                             ((256, 8192, 4), np.uint8, 4),
+                                             ((37, 17, 4), np.uint8, 4),
+                                             ((29, 19, 4), np.uint8, 4),
+                                             ((16, 8197, 4), np.uint8, 4),
+                                             ((16, 8200, 4), np.uint8, 4),
+                                             ((13, 1025, 4), np.uint16, 8),
+                                             ((8, 5000, 4), np.uint16, 8),
+                                             ((11, 40, 3), np.uint8, 3),
+                                             ((7, 6, 4), np.uint16, 4)])
+def test_filter_select_matches_plain(cuda, shape, dtype, bpp):
+    for kind in ("random", "extremes"):
+        t, prev = filter_band(cuda, shape, dtype, shape[0], kind)
+        launches = K.filter_select.launches
+        types, filtered = K.filter_select(t, prev, bpp)
+        p_types, p_filtered = K.filter_select_plain(t, prev, bpp)
+        torch.cuda.synchronize()
+        assert torch.equal(types, p_types) and torch.equal(filtered, p_filtered)
+        assert K.filter_select.launches == launches + 1
+
+
+def test_filter_select_every_variant(cuda):
+    """Each kernel of csrc/filter.cu against the plain version, unaligned
+    row starts included; the set of kernels reached is all of them."""
+    seen = set()
+    for shape, dtype, bpp, offset in [((64, 2048, 4), np.uint8, 4, 0),
+                                      ((64, 2048, 4), np.uint8, 4, 4),
+                                      ((64, 1024, 4), np.uint16, 8, 0),
+                                      ((64, 1024, 4), np.uint16, 8, 4),
+                                      ((64, 2048, 4), np.uint8, 4, 1),
+                                      ((16, 100, 3), np.uint8, 3, 0)]:
+        t, prev = filter_band(cuda, shape, dtype, offset + bpp, offset=offset)
+        filtered_probe = torch.empty(1, dtype=torch.uint8, device=cuda)
+        seen.add(K.FILTER_VARIANTS[K.filter_variant(t[0].nbytes, bpp, t.data_ptr(),
+                                                    prev.data_ptr(),
+                                                    filtered_probe.data_ptr())])
+        types, filtered = K.filter_select(t, prev, bpp)
+        p_types, p_filtered = K.filter_select_plain(t, prev, bpp)
+        torch.cuda.synchronize()
+        assert torch.equal(types, p_types) and torch.equal(filtered, p_filtered)
+    assert seen == set(K.FILTER_VARIANTS)
 
 
 def segments(rng, n, h, w):
@@ -118,7 +166,10 @@ def segments(rng, n, h, w):
     return np.array(metas, np.int64), np.concatenate(parts)
 
 
-@pytest.mark.parametrize("n,h,w", [(1, 8, 8), (12, 64, 333), (50, 256, 2048)])
+# (600, 64, 333): three culling chunks, a band width off the tile and the
+# 16 B line; (50, 256, 8192): the smoke's band; (500, 256, 2048): crowded.
+@pytest.mark.parametrize("n,h,w", [(1, 8, 8), (12, 64, 333), (50, 256, 2048), (600, 64, 333),
+                                   (50, 256, 8192), (500, 256, 2048), (40, 37, 130)])
 def test_composite_segments_matches_plain(cuda, n, h, w):
     metas, srcs = (torch.from_numpy(a).to(cuda) for a in segments(np.random.default_rng(n), n, h, w))
     launches = K.composite_segments.launches
@@ -127,6 +178,24 @@ def test_composite_segments_matches_plain(cuda, n, h, w):
     torch.cuda.synchronize()
     assert torch.equal(band, p_band) and int(ties) == int(p_ties)
     assert K.composite_segments.launches == launches + 1
+
+
+def test_composite_tie_inside_a_culled_tile(cuda):
+    """The exact rational tie (As 2, Ad 6, s 5, d 174) placed across a tile
+    corner, beside other segments: band and tie count equal the plain
+    version's (its 200 pixels and the random segments' own ties)."""
+    rng = np.random.default_rng(9)
+    metas, srcs = segments(rng, 30, 64, 100)
+    base = np.full((10, 20, 4), (174, 174, 174, 6), np.uint8).reshape(-1)
+    top = np.full((10, 20, 4), (5, 5, 5, 2), np.uint8).reshape(-1)
+    off = srcs.size
+    metas = np.concatenate([metas, [[11, 120, 10, 20, off, 80], [11, 120, 10, 20, off + 800, 80]]])
+    srcs = np.concatenate([srcs, base, top])
+    metas, srcs = torch.from_numpy(metas).to(cuda), torch.from_numpy(srcs).to(cuda)
+    band, ties = K.composite_segments(metas, srcs, (0, 0, 0, 0), 64, 400)
+    p_band, p_ties = K.composite_segments_plain(metas, srcs, (0, 0, 0, 0), 64, 400)
+    torch.cuda.synchronize()
+    assert torch.equal(band, p_band) and int(ties) == int(p_ties) >= 200
 
 
 def test_grid_and_positioned_png_match_host(cuda):
