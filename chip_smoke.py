@@ -26,7 +26,15 @@ path. Phases, each printing its lines before the last:
    compositing of 50 and of 500 random segments of partial alpha into a
    256 x 8192 band, 300 into a 100 x 1001 band (off the tile), the exact
    rational tie case, which must count ties, and that tie across a tile
-   corner beside 40 segments. Outputs must be equal;
+   corner beside 40 segments; the JPEG kernels: idct_dequant on random
+   int16 blocks up to +-2^15 with the q50 and q100 tables at K = 8, 24
+   and 64 and all-zero AC columns, ycc_rgba on 4:4:4, h2v1, h2v2 and gray
+   windows with comp_w of 2 and 3 at band and image edges into a wider
+   band at an x offset, fdct_quant on a 256 x 8192 band of random bytes, a
+   saturated-blue band (Cb = 256) and a 4:2:0 band, symbol_streams on
+   blocks with runs of 16, 17 and 32 zeros and nonzeros at position 63 in
+   restart groups of 1 and 4 MCU rows and carried from a nonzero prev_dc.
+   Outputs must be equal;
 4. main paths, through ``image_stitch_tpu_torch.concat_to_buffer(...,
    device="cuda")``, each output byte-identical to the same call with
    ``device="cpu"`` (the plain torch versions; the CPU tests hold that path
@@ -36,14 +44,24 @@ path. Phases, each printing its lines before the last:
    - JPEG: an 8 x 8 grid of 1024 x 1024 photo-like RGBA PNG tiles (a 67 MP
      canvas, made from a seed) at q85 with restart rows 1 (4:4:4); a 2 x 2
      grid of those tiles with restart rows 0 (4:4:4) and 1 (4:2:0);
-     pack_merge must launch once per dispatched band (32 in the 67 MP run)
-     and no band may be host-coded;
+     pack_merge must launch once per dispatched band (32 in the 67 MP run),
+     symbol_streams as often, fdct_quant once per quantized band, and no
+     band may be host-coded;
+   - JPEG tiles: the same 64 tiles made JPEGs by the port's own encoder at
+     q90 4:2:0, as an 8 x 8 grid to JPEG (band 256, q85, restart rows 1),
+     byte-identical to the same call with STITCH_TPU_DEVICE_DECODE=0 (host
+     decode, card encode): decode_band once per tile and band, into the
+     band on the card, no tile decoded on the host, idct_dequant three
+     times and ycc_rgba once per decode_band; the 8 x 2 grid (16.8 MP), a
+     2 x 2 grid of q90 4:4:4 tiles with restart rows 0 and a mixed PNG and
+     JPEG 2 x 2 grid against the CPU path;
    - PNG: the 67 MP grid to PNG (level 6) and a 2 x 2 grid of 1024 x 1024
      RGBA16 tiles to PNG, filter select launched once for each band; a
      2048 x 2048 background under 50 sprites of 128 x 128 with partial
      alpha and random z order to PNG (compositing and filter select must
      launch) and to JPEG q85 (compositing and pack_merge must launch, 8
-     times each); then compositing against its plain version on the
+     times each, and every blended band must reach the encoder as a tensor
+     on the card); then compositing against its plain version on the
      positioned runs' most crowded real band;
 5. timing: per-band time of each JPEG stage, of pack_merge against its
    plain version (the plain pack, then the plain merge) and against
@@ -58,7 +76,12 @@ path. Phases, each printing its lines before the last:
    (the ``ms`` and ``library_ms`` of the kernel line); end-to-end
    MP/s of the torch path for grid to JPEG, grid to PNG and positioned to
    PNG, and of host decode + assembly and host deflate alone; one profiled
-   run each of grid to JPEG and grid to PNG.
+   run each of grid to JPEG and grid to PNG. For the JPEG kernels:
+   idct_dequant and ycc_rgba on a real tile band of the JPEG-tile grid,
+   fdct_quant and symbol_streams on a real 256 x 8192 band, each against
+   its plain version and its bytes bound; end-to-end MP/s of JPEG tiles to
+   JPEG with device decode on and off, and of host Huffman decode alone;
+   a profiled run of JPEG tiles to JPEG.
 
 The line before the last is a JSON object with one entry per kernel: its
 launches on the main paths, its max |kernel - plain|, its median time, the
@@ -70,6 +93,7 @@ plain version's and the library call's, and its least time on the card
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -186,11 +210,12 @@ def time_cuda(fn, reps: int = 20, warmup: int = 3) -> dict:
     return {"median": statistics.median(ms), "min": min(ms), "max": max(ms), "reps": reps}
 
 
-def device_time(fn, reps: int = 20, windows: int = 3) -> dict:
+def device_time(fn, reps: int = 20, windows: int = 3, what: str = "") -> dict:
     """Device time per call of ``fn`` from torch.profiler (CUPTI): the
-    durations of the kernels and copies it runs, summed over ``reps`` calls
-    and divided by ``reps``; median, min and max over ``windows`` such
-    windows after a warm-up. Host launch time is not in it."""
+    self device time of the kernels and copies it runs (key_averages),
+    summed over ``reps`` calls and divided by ``reps``; median, min and max
+    over ``windows`` such windows after a warm-up. Host launch time is not
+    in it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -203,10 +228,11 @@ def device_time(fn, reps: int = 20, windows: int = 3) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA)
         if us <= 0:
-            fail("torch.profiler recorded no device activity")
+            fail(f"torch.profiler recorded no device activity for {what}: "
+                 f"{[(e.key, e.count) for e in prof.key_averages()]}")
         per_call.append(us / 1e3 / reps)
     return {"median": statistics.median(per_call), "min": min(per_call),
             "max": max(per_call), "reps": windows}
@@ -415,6 +441,150 @@ def check_composite(metas, srcs, bg, h: int, w: int, what: str) -> tuple[int, in
     return err, int(ties)
 
 
+def ycc_window(rng: np.random.Generator, sampling: str, width: int, height: int, y0: int,
+               y1: int, dev: torch.device):
+    """Random component planes of a width x height image cut to the band
+    window of rows [y0, y1), as DeviceJpegDecoder cuts them: (planes,
+    geometries)."""
+    from image_stitch_tpu_torch.codecs.jpeg.device_decoder import _band_window
+
+    hmax, vmax = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "gray": (1, 1)}[sampling]
+    comps = [(hmax, vmax)] if sampling == "gray" else [(hmax, vmax), (1, 1), (1, 1)]
+    planes, geoms = [], []
+    for h, v in comps:
+        comp_w, comp_h = -(-width * h // hmax), -(-height * v // vmax)
+        by, bx = -(-comp_h // (8 * v)) * v, -(-comp_w // (8 * h)) * h
+        h_exp, v_exp = hmax // h, vmax // v
+        wa, wb, r0 = _band_window(y0, y1, comp_h, v_exp, v_exp == 2 and h_exp == 2 and comp_w > 2)
+        bb, be = wa // 8, min(by, -(-wb // 8))
+        planes.append(torch.from_numpy(
+            rng.integers(0, 256, ((be - bb) * 8, bx * 8), dtype=np.uint8)).to(dev))
+        geoms.append((h_exp, v_exp, r0, wa - bb * 8, wb - bb * 8, comp_w))
+    return planes, geoms
+
+
+def edge_blocks(rng: np.random.Generator, n: int) -> np.ndarray:
+    """(n, 64) int16 natural-order quantized blocks: sparse random ones,
+    and in zigzag order runs of 16, 17 and 32 zeros ended by a nonzero, a
+    nonzero at position 63, DC-only blocks."""
+    from image_stitch_tpu_torch.codecs.jpeg.tables import ZIGZAG
+
+    zz = rng.integers(-60, 61, (n, 64)) * (rng.random((n, 64)) < 0.25)
+    zz[:, 0] = rng.integers(-1023, 1024, n)
+    zz[0::9, 1:] = 0
+    for i, run in enumerate((16, 17, 32)):
+        zz[1 + i :: 9, 2 : 2 + run] = 0
+        zz[1 + i :: 9, 1] = 3
+        zz[1 + i :: 9, 2 + run] = -5
+    zz[4::9, 63] = 9
+    nat = np.zeros_like(zz)
+    nat[:, ZIGZAG] = zz
+    return nat.astype(np.int16)
+
+
+def check_jpeg_kernels(dev: torch.device) -> dict:
+    """Max |kernel - plain| of the four JPEG kernels at the JPEG paths'
+    shapes (each must be 0)."""
+    from image_stitch_tpu_torch.codecs.jpeg.tables import ZIGZAG, quality_scaled_tables
+    from image_stitch_tpu_torch.ops import jpeg_entropy_device as E
+    from image_stitch_tpu_torch.ops import jpeg_idct_device as D
+    from image_stitch_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(SEED + 3)
+    errs = {"idct_dequant": 0, "ycc_rgba": 0, "fdct_quant": 0, "symbol_streams": 0}
+
+    def note(name: str, err: int, what: str) -> None:
+        errs[name] = max(errs[name], err)
+        if err:
+            fail(f"{name} != plain on {what}: max |diff| {err}")
+        say(f"{name} == plain on {what}")
+
+    # idct_dequant: a 4:2:0 tile's luma window (33 block rows of 128) and
+    # a chroma one (18 of 64), coefficients over all of int16.
+    for quality in (50, 100):
+        q = torch.from_numpy(quality_scaled_tables(quality)[0].astype(np.int32)).to(dev)
+        for k in (8, 24, 64):
+            for rows, bx in ((33, TILE // 8), (18, TILE // 16)):
+                zz = rng.integers(-(1 << 15), 1 << 15, (rows * bx, k)).astype(np.int16)
+                zz[: bx, 1:] = 0  # a block row of DC-only blocks
+                zz[bx : 2 * bx, np.asarray(ZIGZAG[:k]) % 8 == 5] = 0  # AC-free column 5
+                zz = torch.from_numpy(zz).to(dev)
+                got = K.idct_dequant(zz, q, bx)
+                want = D.decode_plane(zz, q, bx)
+                torch.cuda.synchronize()
+                note("idct_dequant", max_err(got, want),
+                     f"{rows} x {bx} blocks, K={k}, q{quality}, int16 up to +-2^15")
+    # ycc_rgba: windows at the image's top and bottom edges and inside it,
+    # comp_w 2 and 3, each tile into a band 8 tiles wide at an x offset.
+    b = BAND_ROWS
+    cases = [("444", TILE, TILE, b, 2 * b), ("422", TILE, TILE, 0, b),
+             ("420", TILE, TILE, b, 2 * b), ("420", TILE, TILE, TILE - b, TILE),
+             ("420", TILE, TILE, 0, b), ("gray", TILE, TILE, TILE - 2 * b, TILE - b),
+             ("420", 5, 9, 1, 8), ("420", 4, 9, 3, 9), ("420", 6, 9, 0, 9)]
+    for sampling, w, h, y0, y1 in cases:
+        planes, geoms = ycc_window(rng, sampling, w, h, y0, y1, dev)
+        x0 = 3 * w + 5
+        out = torch.zeros((y1 - y0, 8 * w + 16, 4), dtype=torch.uint8, device=dev)
+        K.ycc_rgba(planes, geoms, out, x0, w)
+        want = D.window_to_rgba(planes, geoms, y1 - y0, w)
+        torch.cuda.synchronize()
+        outside = int(out[:, :x0].any()) + int(out[:, x0 + w :].any())
+        note("ycc_rgba", max(max_err(out[:, x0 : x0 + w], want), 255 * outside),
+             f"{sampling} {w} x {h} rows [{y0}, {y1}) at x0={x0}, comp_w {geoms[-1][-1]}")
+    # fdct_quant: the grid's band of random RGBA bytes, saturated blue, and
+    # a 4:2:0 band, read with 4 B and 3 B pixel strides.
+    lq, cq = (torch.from_numpy(t.astype(np.int32)).to(dev) for t in quality_scaled_tables(QUALITY))
+    rand = rng.integers(0, 256, (BAND_ROWS, GRID * TILE, 4), dtype=np.uint8)
+    blue = np.zeros_like(rand)
+    blue[..., 2] = 255
+    for band, sampling, what in ((rand, "444", "random RGBA bytes"),
+                                 (blue, "444", "saturated blue (Cb = 256)"),
+                                 (rand, "420", "random RGBA bytes"),
+                                 (rand[..., :3], "444", "random RGB bytes")):
+        t = torch.from_numpy(np.ascontiguousarray(band)).to(dev)
+        got = K.fdct_quant(t, lq, cq, sampling)
+        plain = band_to_blocks(sampling)
+        want = plain(t, lq, cq)
+        torch.cuda.synchronize()
+        note("fdct_quant", max(max_err(a, b) for a, b in zip(got, want)),
+             f"a {BAND_ROWS} x {GRID * TILE} {sampling} band of {what}")
+    # symbol_streams: a 256 x 8192 band's blocks (4:4:4 and 4:2:0),
+    # restart groups of 1 and 4 MCU rows, and the carried form.
+    luts = E.build_entropy_luts(*huffman_tables(), dev)
+    for sampling in ("444", "420"):
+        mcu = 16 if sampling == "420" else 8
+        n = (BAND_ROWS // mcu) * (GRID * TILE // mcu)
+        luma = 4 if sampling == "420" else 1
+        blocks = [torch.from_numpy(edge_blocks(rng, c)).to(dev) for c in (luma * n, n, n)]
+        prev = torch.tensor([517, -66, 31], dtype=torch.int32, device=dev)
+        for groups, prev_dc, what in ((BAND_ROWS // mcu, None, "restart groups of 1 MCU row"),
+                                      (max(1, BAND_ROWS // mcu // 4), None, "restart groups of 4 MCU rows"),
+                                      (1, prev, "the carried form from prev_dc (517, -66, 31)")):
+            got = K.symbol_streams(*blocks, luts, groups, sampling, prev_dc)
+            want = E.symbol_streams_plain(*blocks, luts, groups, sampling, prev_dc)
+            torch.cuda.synchronize()
+            note("symbol_streams", max(max_err(got[0], want[0]), max_err(got[1], want[1])),
+                 f"{n} {sampling} MCUs (ZRL runs, nonzeros at 63), {what}")
+    return errs
+
+
+def huffman_tables() -> list:
+    """The standard Huffman tables as (dc_luma, ac_luma, dc_chroma,
+    ac_chroma)."""
+    from image_stitch_tpu_torch.codecs.jpeg import tables as T
+
+    return [T.build_huffman_codes(bits, vals) for bits, vals in (
+        (T.STD_DC_LUMA_BITS, T.STD_DC_LUMA_VALS), (T.STD_AC_LUMA_BITS, T.STD_AC_LUMA_VALS),
+        (T.STD_DC_CHROMA_BITS, T.STD_DC_CHROMA_VALS), (T.STD_AC_CHROMA_BITS, T.STD_AC_CHROMA_VALS))]
+
+
+def band_to_blocks(sampling: str):
+    """fdct_quant's plain version for ``sampling``."""
+    from image_stitch_tpu_torch.ops.jpeg_dct import band_to_blocks_islow, band_to_blocks_islow_420
+
+    return band_to_blocks_islow_420 if sampling == "420" else band_to_blocks_islow
+
+
 def same_as_cpu(out: bytes, opts: dict, what: str) -> None:
     """``out`` must equal the port's ``device="cpu"`` output for ``opts``."""
     import image_stitch_tpu_torch
@@ -430,32 +600,90 @@ def same_as_cpu(out: bytes, opts: dict, what: str) -> None:
     say(f"main path {what}: byte-identical to the port's CPU path ({secs:.2f} s on the CPU)")
 
 
-COUNTED = ("pack_merge", "filter_select", "composite_segments")
+COUNTED = ("pack_merge", "filter_select", "composite_segments", "idct_dequant", "ycc_rgba",
+           "fdct_quant", "symbol_streams")
+# What the run under way did outside the kernels' counts, recorded by
+# tracing(): decode_band calls (components, into a band on the card),
+# whole tiles decoded on the host tier, and the kinds of band the JPEG
+# encoder was handed ("card" tensors, "host" arrays).
+TRACE: dict = {"decode_band": [], "host_tiles": 0, "encoder_bands": []}
+
+
+def tracing():
+    """Wrap DeviceJpegDecoder.decode_band, the host tier's whole-tile JPEG
+    decode and the JPEG encoder's encode_band to record into TRACE; returns
+    the function that unwraps them."""
+    from image_stitch_tpu_torch.codecs.jpeg import decoder as jpeg_decoder
+    from image_stitch_tpu_torch.codecs.jpeg.device_decoder import DeviceJpegDecoder
+    from image_stitch_tpu_torch.codecs.jpeg.encoder import TorchStreamingJpegEncoder
+
+    real = (DeviceJpegDecoder.decode_band, jpeg_decoder.decode_jpeg_to_rgba,
+            TorchStreamingJpegEncoder.encode_band)
+
+    def decode_band(self, y0, y1, return_device=False, out=None, x0=0):
+        TRACE["decode_band"].append((len(self._zz_blocks), out is not None and out.is_cuda))
+        return real[0](self, y0, y1, return_device, out, x0)
+
+    def host_tile(data, options=None):
+        TRACE["host_tiles"] += 1
+        return real[1](data, options)
+
+    def encode_band(self, band):
+        TRACE["encoder_bands"].append("card" if isinstance(band, torch.Tensor) and band.is_cuda
+                                      else "host")
+        return real[2](self, band)
+
+    DeviceJpegDecoder.decode_band = decode_band
+    jpeg_decoder.decode_jpeg_to_rgba = host_tile
+    TorchStreamingJpegEncoder.encode_band = encode_band
+
+    def undo():
+        (DeviceJpegDecoder.decode_band, jpeg_decoder.decode_jpeg_to_rgba,
+         TorchStreamingJpegEncoder.encode_band) = real
+    return undo
+
+
+def reset_trace() -> None:
+    TRACE.update(decode_band=[], host_tiles=0, encoder_bands=[])
 
 
 def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
-             must_launch: tuple[str, ...]):
+             must_launch: tuple[str, ...], reference: str = "cpu", expect: dict | None = None):
     """One main-path run through ``image_stitch_tpu_torch.concat_to_buffer``
     with every kernel's launch count set to 0 just before it and read just
     after; each kernel in ``must_launch`` must have launched in this run,
-    pack_merge once per band dispatched (bands submitted plus re-packs) and
-    filter select once per PNG band. The output must equal the CPU path's.
-    Returns (output, launches, counters)."""
+    pack_merge and symbol_streams once per band dispatched (bands submitted
+    plus re-packs), fdct_quant once per band quantized, filter select once
+    per PNG band, idct_dequant once per component and ycc_rgba once per
+    decode_band. ``expect`` holds counts of TRACE that must match:
+    "decode_band" calls, all of them "into_band" on the card or not,
+    "host_tiles", and "encoder_bands" of each kind. The output must equal
+    the CPU path's (``reference`` "cpu") or the same call's with
+    STITCH_TPU_DEVICE_DECODE=0 on the card ("host_decode"). Returns
+    (output, launches, counters)."""
+    import os
+
     import image_stitch_tpu_torch
     from image_stitch_tpu_torch.ops import kernels as K
 
     counters = image_stitch_tpu_torch.EncodeCounters()
+    reset_trace()
     for k in COUNTED:
         getattr(K, k).launches = 0
     t0 = time.perf_counter()
     out = image_stitch_tpu_torch.concat_to_buffer(opts, device=dev, counters=counters)
     secs = time.perf_counter() - t0
     launches = {k: getattr(K, k).launches for k in COUNTED}
+    calls = list(TRACE["decode_band"])
+    kinds = {k: TRACE["encoder_bands"].count(k) for k in ("card", "host")}
+    host_tiles = TRACE["host_tiles"]
     for k in must_launch:
         if launches[k] <= 0:
             fail(f"{name}: {k} was not launched")
     say(f"main path {name}: {megapixels:.1f} MP -> {len(out)} B, torch path {secs:.3f} s; "
-        f"launches {launches}; counters {counters}")
+        f"launches {launches}; counters {counters}; decode_band {len(calls)} calls, "
+        f"{sum(into for _c, into in calls)} into a band on the card; {host_tiles} tiles "
+        f"decoded on the host; encoder bands {kinds}")
     if counters.host_fallback_bands:
         fail(f"{name}: {counters.host_fallback_bands} bands were coded on the host")
     if opts["outputFormat"] == "jpeg":
@@ -464,12 +692,43 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
         if launches["pack_merge"] != counters.bands + counters.repacks:
             fail(f"{name}: {launches['pack_merge']} pack_merge launches for "
                  f"{counters.bands} bands and {counters.repacks} re-packs")
+        if launches["symbol_streams"] != launches["pack_merge"]:
+            fail(f"{name}: {launches['symbol_streams']} symbol_streams launches for "
+                 f"{launches['pack_merge']} pack_merge launches")
+        if launches["fdct_quant"] != launches["pack_merge"] - counters.repacks:
+            fail(f"{name}: {launches['fdct_quant']} fdct_quant launches for "
+                 f"{launches['pack_merge'] - counters.repacks} quantized bands")
     elif launches["filter_select"] != counters.png_bands:
         fail(f"{name}: {launches['filter_select']} filter launches for "
              f"{counters.png_bands} bands")
+    if (launches["idct_dequant"], launches["ycc_rgba"]) != (sum(c for c, _ in calls), len(calls)):
+        fail(f"{name}: {launches['idct_dequant']} idct_dequant and {launches['ycc_rgba']} "
+             f"ycc_rgba launches for {len(calls)} decode_band calls")
     if "composite_segments" in must_launch and not counters.composite_bands_on_device:
         fail(f"{name}: no band was blended on the card")
-    same_as_cpu(out, opts, name)
+    got = {"decode_band": len(calls), "into_band": all(i for _c, i in calls) if calls else None,
+           "host_tiles": host_tiles, **{f"encoder_bands_{k}": v for k, v in kinds.items()}}
+    for key, want in (expect or {}).items():
+        if got[key] != want:
+            fail(f"{name}: {key} = {got[key]}, expected {want}")
+    if reference == "cpu":
+        same_as_cpu(out, opts, name)
+    else:
+        os.environ["STITCH_TPU_DEVICE_DECODE"] = "0"
+        reset_trace()
+        try:
+            t0 = time.perf_counter()
+            ref = image_stitch_tpu_torch.concat_to_buffer(opts, device=dev)
+            secs = time.perf_counter() - t0
+        finally:
+            del os.environ["STITCH_TPU_DEVICE_DECODE"]
+        if TRACE["decode_band"]:
+            fail(f"{name}: decode_band was called with STITCH_TPU_DEVICE_DECODE=0")
+        if ref != out:
+            fail(f"{name}: output ({len(out)} B) != the host-decode run's ({len(ref)} B)")
+        say(f"main path {name}: byte-identical to the same call with "
+            f"STITCH_TPU_DEVICE_DECODE=0 ({TRACE['host_tiles']} tiles decoded on the host, "
+            f"{secs:.2f} s on the card)")
     return out, launches, counters
 
 
@@ -478,14 +737,13 @@ def add_launches(total: dict, launches: dict) -> None:
         total[k] = total.get(k, 0) + n
 
 
-def main_paths(cases: list[tuple[str, dict, float, tuple[str, ...]]],
-               dev: torch.device) -> tuple[dict, int, tuple]:
-    """Each (name, options, megapixels, kernels that must launch) case run
-    on its own counts and held byte for byte against the CPU path. The
-    most crowded band that the positioned runs hand to composite_segments
-    is held against its plain version afterwards. Returns (launches summed
-    over the runs, that check's max |diff|, that band's (metas, srcs, bg,
-    h, w))."""
+def main_paths(cases: list[tuple], dev: torch.device) -> tuple[dict, int, tuple]:
+    """Each (name, options, megapixels, kernels that must launch[,
+    reference, expect]) case run on its own counts and held byte for byte
+    against its reference (run_path). The most crowded band that the
+    positioned runs hand to composite_segments is held against its plain
+    version afterwards. Returns (launches summed over the runs, that
+    check's max |diff|, that band's (metas, srcs, bg, h, w))."""
     from image_stitch_tpu_torch.ops import composite_device
 
     real = composite_device.composite_segments
@@ -498,12 +756,14 @@ def main_paths(cases: list[tuple[str, dict, float, tuple[str, ...]]],
 
     total: dict = {}
     composite_device.composite_segments = capture
+    undo = tracing()
     try:
-        for name, opts, mp, must_launch in cases:
-            _out, launches, _counters = run_path(name, opts, mp, dev, must_launch)
+        for name, opts, mp, must_launch, *rest in cases:
+            _out, launches, _counters = run_path(name, opts, mp, dev, must_launch, *rest)
             add_launches(total, launches)
     finally:
         composite_device.composite_segments = real
+        undo()
     if not seen:
         fail("no positioned band reached composite_segments")
     metas, srcs, bg, h, w = seen[0]
@@ -546,8 +806,10 @@ def png_kernel_timing(dev: torch.device, real_band: tuple) -> tuple[dict, dict]:
 
 def band_timing(tiles: list[np.ndarray], dev: torch.device) -> tuple[dict, dict, dict]:
     """Per-stage device time of one 256 x 8192 4:4:4 restart band (32
-    groups of one MCU row), kernel path against plain path; pack_merge
-    against its plain version and against ``index_add_`` of the same words.
+    groups of one MCU row), kernel path against plain path (quantize and
+    symbols are the fdct_quant and symbol_streams kernels, each also timed
+    as its plain version); pack_merge against its plain version and
+    against ``index_add_`` of the same words.
     Returns (times, max |kernel - plain| on that band, pack_merge's bytes
     moved)."""
     from image_stitch_tpu_torch.codecs.jpeg import tables as T
@@ -560,10 +822,7 @@ def band_timing(tiles: list[np.ndarray], dev: torch.device) -> tuple[dict, dict,
     band_np = np.concatenate([tiles[c][:BAND_ROWS, :, :3] for c in range(GRID)], axis=1)
     band = torch.from_numpy(np.ascontiguousarray(band_np)).to(dev)
     lq, cq = (torch.from_numpy(q).to(dev) for q in T.quality_scaled_tables(QUALITY))
-    huffman = [T.build_huffman_codes(bits, vals) for bits, vals in (
-        (T.STD_DC_LUMA_BITS, T.STD_DC_LUMA_VALS), (T.STD_AC_LUMA_BITS, T.STD_AC_LUMA_VALS),
-        (T.STD_DC_CHROMA_BITS, T.STD_DC_CHROMA_VALS), (T.STD_AC_CHROMA_BITS, T.STD_AC_CHROMA_VALS))]
-    luts = E.build_entropy_luts(*huffman, dev)
+    luts = E.build_entropy_luts(*huffman_tables(), dev)
     n_groups = BAND_ROWS // 8
 
     blocks = jpeg_quantize(band, lq, cq)
@@ -603,14 +862,16 @@ def band_timing(tiles: list[np.ndarray], dev: torch.device) -> tuple[dict, dict,
         return E.pack_groups_from_blocks(*b, luts, n_groups, cap_words, local_words=lw)
 
     def plain_path():
-        b = jpeg_quantize(band, lq, cq)
-        c, ln = E._symbol_streams_flat(*b, luts, n_groups)
+        b = band_to_blocks("444")(band, lq, cq)
+        c, ln = E.symbol_streams_plain(*b, luts, n_groups)
         s, _, _ = E._group_layout(ln, n_groups)
         return K.pack_merge_plain(c, ln, s, lw, n_words)
 
     t = {
         "quantize": time_cuda(lambda: jpeg_quantize(band, lq, cq)),
+        "quantize_plain": time_cuda(lambda: band_to_blocks("444")(band, lq, cq)),
         "symbols": time_cuda(lambda: E._symbol_streams_flat(*blocks, luts, n_groups)),
+        "symbols_plain": time_cuda(lambda: E.symbol_streams_plain(*blocks, luts, n_groups)),
         "layout": time_cuda(lambda: E._group_layout(lens, n_groups)),
         "pack_merge_kernel": time_cuda(
             lambda: K.pack_merge(codes, lens, starts, lw, n_words), reps=50),
@@ -623,6 +884,101 @@ def band_timing(tiles: list[np.ndarray], dev: torch.device) -> tuple[dict, dict,
         "band_plain_path": time_cuda(plain_path),
     }
     return t, {"pack_merge": err}, {"pack_merge": moved}
+
+
+def jpeg_tiles(tiles_png: list[bytes], dev: torch.device, sampling: str) -> list[bytes]:
+    """Each PNG tile made a JPEG by the port's own encoder on the card, at
+    q90 (the card has no PIL)."""
+    import image_stitch_tpu_torch
+
+    return [image_stitch_tpu_torch.concat_to_buffer(
+        {"inputs": [t], "layout": {"columns": 1}, "outputFormat": "jpeg", "jpegQuality": 90,
+         "jpegSampling": sampling}, device=dev) for t in tiles_png]
+
+
+def jpeg_kernel_timing(tiles_jpeg: list[bytes], dev: torch.device) -> tuple[dict, dict, dict]:
+    """The four JPEG kernels on real inputs of the JPEG-tile grid, each
+    against its plain version: idct_dequant on the luma window of one
+    tile's second band and ycc_rgba on that band's three windows into the
+    256 x 8192 band; fdct_quant and symbol_streams (32 restart groups) on
+    the grid's second band, decoded on the card. Returns (times, bytes
+    each must move, max |kernel - plain| on these inputs)."""
+    from image_stitch_tpu_torch.codecs.jpeg.device_decoder import DeviceJpegDecoder
+    from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
+    from image_stitch_tpu_torch.ops import jpeg_entropy_device as E
+    from image_stitch_tpu_torch.ops import jpeg_idct_device as D
+    from image_stitch_tpu_torch.ops import kernels as K
+
+    t, moved = {}, {}
+    y0, y1 = BAND_ROWS, 2 * BAND_ROWS
+    decs = [DeviceJpegDecoder(j, dev) for j in tiles_jpeg[:GRID]]
+    wins = decs[0].windows(y0, y1)
+    qs = [torch.from_numpy(q).to(dev) for q in decs[0]._qtabs]
+    zz = [torch.from_numpy(np.ascontiguousarray(z)).to(dev) for z, _bx, _g in wins]
+    planes = [K.idct_dequant(z, q, bx) for z, q, (_z, bx, _g) in zip(zz, qs, wins)]
+    geoms = [g for _z, _bx, g in wins]
+    band = torch.zeros((BAND_ROWS, GRID * TILE, 4), dtype=torch.uint8, device=dev)
+    z0, q0, bx0 = zz[0], qs[0], wins[0][1]
+    errs = {"idct_dequant": max_err(planes[0], D.decode_plane(z0, q0, bx0)),
+            "ycc_rgba": max_err(K.ycc_rgba(planes, geoms, band, 0, TILE)[:, :TILE],
+                                D.window_to_rgba(planes, geoms, BAND_ROWS, TILE))}
+    say(f"JPEG tile band [{y0}, {y1}): K {decs[0]._k}, windows "
+        f"{[(tuple(z.shape), g) for z, g in zip(zz, geoms)]}")
+    t["idct_kernel"] = time_cuda(lambda: K.idct_dequant(z0, q0, bx0), reps=50)
+    t["idct_device"] = device_time(lambda: K.idct_dequant(z0, q0, bx0), what="idct_dequant")
+    t["idct_plain"] = time_cuda(lambda: D.decode_plane(z0, q0, bx0), reps=5)
+    # Read the coefficients and the table, write the samples.
+    moved["idct"] = z0.nbytes + q0.nbytes + planes[0].nbytes
+    t["ycc_kernel"] = time_cuda(lambda: K.ycc_rgba(planes, geoms, band, 0, TILE), reps=50)
+    t["ycc_device"] = device_time(lambda: K.ycc_rgba(planes, geoms, band, 0, TILE),
+                                 what="ycc_rgba")
+    t["ycc_plain"] = time_cuda(lambda: D.window_to_rgba(planes, geoms, BAND_ROWS, TILE), reps=5)
+    # Read each window's samples, write the tile's RGBA.
+    moved["ycc"] = sum((g[4] - g[3]) * g[5] for g in geoms) + BAND_ROWS * TILE * 4
+    t["decode_band"] = time_cuda(lambda: decs[0].decode_band(y0, y1, True, band, 0))
+    for c, d in enumerate(decs):
+        d.decode_band(y0, y1, True, band, c * TILE)
+    lq, cq = (torch.from_numpy(q.astype(np.int32)).to(dev) for q in quality_scaled_tables(QUALITY))
+    blocks = K.fdct_quant(band, lq, cq)
+    errs["fdct_quant"] = max(max_err(a, b) for a, b in
+                             zip(blocks, band_to_blocks("444")(band, lq, cq)))
+    t["fdct_kernel"] = time_cuda(lambda: K.fdct_quant(band, lq, cq), reps=50)
+    t["fdct_device"] = device_time(lambda: K.fdct_quant(band, lq, cq), what="fdct_quant")
+    t["fdct_plain"] = time_cuda(lambda: band_to_blocks("444")(band, lq, cq), reps=5)
+    # Read the RGBA band and the tables, write the three block arrays.
+    moved["fdct"] = band.nbytes + lq.nbytes + cq.nbytes + sum(b.nbytes for b in blocks)
+    luts = E.build_entropy_luts(*huffman_tables(), dev)
+    n_groups = BAND_ROWS // 8
+    codes, lens = K.symbol_streams(*blocks, luts, n_groups)
+    p_codes, p_lens = E.symbol_streams_plain(*blocks, luts, n_groups)
+    errs["symbol_streams"] = max(max_err(codes, p_codes), max_err(lens, p_lens))
+    t["symbols_kernel"] = time_cuda(lambda: K.symbol_streams(*blocks, luts, n_groups), reps=50)
+    t["symbols_device"] = device_time(lambda: K.symbol_streams(*blocks, luts, n_groups),
+                                     what="symbol_streams")
+    t["symbols_plain"] = time_cuda(lambda: E.symbol_streams_plain(*blocks, luts, n_groups), reps=5)
+    # Read the blocks and the table, write the codes and lengths.
+    moved["symbols"] = (sum(b.nbytes for b in blocks) + luts["packed"].nbytes + codes.nbytes
+                        + lens.nbytes)
+    torch.cuda.synchronize()
+    for name, err in errs.items():
+        if err:
+            fail(f"real JPEG band: {name} != plain, max |diff| {err}")
+    say(f"idct_dequant, ycc_rgba, fdct_quant, symbol_streams == plain on the JPEG-tile grid's "
+        f"band {y0 // BAND_ROWS}")
+    return t, moved, errs
+
+
+def host_huffman_rate(tiles_jpeg: list[bytes]) -> float:
+    """MP/s of the host's Huffman decode alone (decode_coefficients) over
+    the JPEG tiles: the serial stage of JPEG-tile decode."""
+    from image_stitch_tpu_torch.codecs.jpeg.owned_decoder import decode_coefficients
+
+    t0 = time.perf_counter()
+    px = 0
+    for data in tiles_jpeg:
+        _blocks, _q, _geom, w, h = decode_coefficients(data)
+        px += w * h
+    return px / 1e6 / (time.perf_counter() - t0)
 
 
 def e2e_rates(opts: dict, megapixels: float, dev: torch.device) -> list[float]:
@@ -734,6 +1090,7 @@ def main() -> None:
     # 3. Kernels against their plain versions at the main paths' shapes.
     errs = check_kernels(dev)
     errs.update(check_png_kernels(dev))
+    errs.update(check_jpeg_kernels(dev))
 
     # 4. Main paths.
     t0 = time.perf_counter()
@@ -742,8 +1099,12 @@ def main() -> None:
     tiles_png = [png_bytes(t) for t in tiles]
     tiles16_png = [png_bytes(photo_tile16(rng, TILE)) for _ in range(SMALL * SMALL)]
     sprites = positioned_inputs(rng)
+    tiles_jpeg = jpeg_tiles(tiles_png, dev, "420")
+    tiles_jpeg444 = jpeg_tiles(tiles_png[:SMALL] + tiles_png[GRID:GRID + SMALL], dev, "444")
     say(f"inputs: {GRID}x{GRID} grid of {TILE}x{TILE} RGBA PNG tiles, "
-        f"{sum(map(len, tiles_png)) / 1e6:.1f} MB; {SMALL}x{SMALL} RGBA16 tiles, "
+        f"{sum(map(len, tiles_png)) / 1e6:.1f} MB, and as q90 4:2:0 JPEGs, "
+        f"{sum(map(len, tiles_jpeg)) / 1e6:.1f} MB; {SMALL}x{SMALL} q90 4:4:4 JPEG tiles, "
+        f"{sum(map(len, tiles_jpeg444)) / 1e6:.1f} MB; {SMALL}x{SMALL} RGBA16 tiles, "
         f"{sum(map(len, tiles16_png)) / 1e6:.1f} MB; {SIDE}x{SIDE} background + {SPRITES} "
         f"sprites; made in {time.perf_counter() - t0:.2f} s")
     grid_jpeg = {"inputs": tiles_png, "layout": {"columns": GRID}, "outputFormat": "jpeg",
@@ -757,18 +1118,41 @@ def main() -> None:
                   "outputFormat": "png", "bandHeight": BAND_ROWS}
     mp_grid, mp_side = GRID * GRID * TILE * TILE / 1e6, SIDE * SIDE / 1e6
     mp_small = SMALL * SMALL * TILE * TILE / 1e6
+    grid_tiles = {**grid_jpeg, "inputs": tiles_jpeg}
+    n_bands = GRID * TILE // BAND_ROWS
+    encode = ("fdct_quant", "symbol_streams", "pack_merge")
+    decode = ("idct_dequant", "ycc_rgba")
     launches, comp_err, real_band = main_paths([
-        (f"grid -> JPEG ri=1 444 q{QUALITY}", grid_jpeg, mp_grid, ("pack_merge",)),
+        (f"grid -> JPEG ri=1 444 q{QUALITY}", grid_jpeg, mp_grid, encode, "cpu",
+         {"decode_band": 0}),
+        (f"JPEG tiles grid -> JPEG ri=1 444 q{QUALITY}", grid_tiles, mp_grid, decode + encode,
+         "host_decode", {"decode_band": GRID * n_bands, "into_band": True, "host_tiles": 0,
+                         "encoder_bands_card": n_bands, "encoder_bands_host": 0}),
+        (f"8x2 JPEG tiles grid -> JPEG ri=1 444 q{QUALITY}",
+         {**grid_tiles, "inputs": tiles_jpeg[:2 * GRID]}, mp_grid / 4, decode + encode, "cpu",
+         {"decode_band": 2 * GRID * (TILE // BAND_ROWS), "into_band": True, "host_tiles": 0}),
+        (f"2x2 4:4:4 JPEG tiles -> JPEG ri=0 q{QUALITY}",
+         {**grid_tiles, "inputs": tiles_jpeg444, "layout": {"columns": SMALL},
+          "jpegRestartIntervalRows": 0}, mp_small, decode + encode, "cpu",
+         {"decode_band": SMALL * SMALL * (TILE // BAND_ROWS), "into_band": True,
+          "host_tiles": 0}),
+        (f"2x2 mixed PNG and JPEG tiles -> JPEG ri=1 q{QUALITY}",
+         {**grid_tiles, "inputs": [tiles_jpeg[0], tiles_png[1], tiles_jpeg[GRID],
+                                   tiles_png[GRID + 1]], "layout": {"columns": SMALL}},
+         mp_small, decode + encode, "cpu",
+         {"decode_band": SMALL * (TILE // BAND_ROWS), "into_band": False, "host_tiles": 0,
+          "encoder_bands_card": 0}),
         (f"2x2 grid -> JPEG ri=0 444 q{QUALITY}", {**small_jpeg, "jpegRestartIntervalRows": 0},
-         mp_small, ("pack_merge",)),
+         mp_small, encode),
         (f"2x2 grid -> JPEG ri=1 420 q{QUALITY}", {**small_jpeg, "jpegSampling": "420"},
-         mp_small, ("pack_merge",)),
+         mp_small, encode),
         ("grid -> PNG 8-bit level 6", grid_png, mp_grid, ("filter_select",)),
         ("2x2 grid -> PNG 16-bit level 6", small_png16, mp_small, ("filter_select",)),
         ("positioned -> PNG", positioned, mp_side, ("composite_segments", "filter_select")),
         (f"positioned -> JPEG q{QUALITY}",
          {**positioned, "outputFormat": "jpeg", "jpegQuality": QUALITY}, mp_side,
-         ("composite_segments", "pack_merge")),
+         ("composite_segments",) + encode, "cpu",
+         {"encoder_bands_card": SIDE // BAND_ROWS, "encoder_bands_host": 0}),
     ], dev)
     errs["composite_segments"] = max(errs["composite_segments"], comp_err)
     say(f"main path launches, summed over the runs: {launches}")
@@ -781,29 +1165,50 @@ def main() -> None:
     pt, png_moved = png_kernel_timing(dev, real_band)
     t.update(pt)
     moved.update(png_moved)
+    jt, jpeg_moved, jpeg_errs = jpeg_kernel_timing(tiles_jpeg, dev)
+    t.update(jt)
+    moved.update(jpeg_moved)
+    errs = {k: max(v, jpeg_errs.get(k, 0)) for k, v in errs.items()}
     rm, _, _, rh, rw = real_band
     for name, what in (("filter8", "RGBA8 band 256x32768 B"), ("filter16", "RGBA16 band 256x65536 B"),
                        ("composite", f"{SPRITES} segments into 256x8192"),
                        ("composite_real", f"the positioned path's {rm.shape[0]} segments "
                                           f"into {rh}x{rw}"),
-                       ("composite_crowded", f"{CROWDED} segments into 256x8192")):
+                       ("composite_crowded", f"{CROWDED} segments into 256x8192"),
+                       ("idct", "a JPEG tile band's luma window"),
+                       ("ycc", "a JPEG tile band's windows into 256x8192"),
+                       ("fdct", "the JPEG-tile grid's RGBA band 256x8192, 4:4:4"),
+                       ("symbols", "that band's blocks, 32 restart groups")):
         for which in ("kernel", "device", "plain"):
             say(f"{name}_{which} ({what}): {fmt(t[f'{name}_{which}'])} [{card}]")
         if name in moved:
             b = bound_ms(moved[name])
             say(f"{name} bound: {moved[name]} B = {b:.4f} ms; device time at "
                 f"{100 * b / t[f'{name}_device']['median']:.1f}% of it [{card}]")
+    say(f"decode_band of one 256-row tile band (3 idct_dequant, 1 ycc_rgba, 3 uploads): "
+        f"{fmt(t['decode_band'])} [{card}]")
     for name, opts, mp in ((f"grid_jpeg 67.1 MP ri=1 q{QUALITY}", grid_jpeg, mp_grid),
+                           (f"jpeg_tiles 67.1 MP ri=1 q{QUALITY}, device decode", grid_tiles,
+                            mp_grid),
                            ("grid_png 67.1 MP level 6", grid_png, mp_grid),
                            (f"positioned_png {mp_side:.1f} MP", positioned, mp_side)):
         r = e2e_rates(opts, mp, dev)
         say(f"e2e {name} torch: {', '.join(f'{x:.2f}' for x in r)} MP/s [{card}]")
+    os.environ["STITCH_TPU_DEVICE_DECODE"] = "0"
+    try:
+        r = e2e_rates(grid_tiles, mp_grid, dev)
+    finally:
+        del os.environ["STITCH_TPU_DEVICE_DECODE"]
+    say(f"e2e jpeg_tiles 67.1 MP ri=1 q{QUALITY}, host decode (STITCH_TPU_DEVICE_DECODE=0) "
+        f"torch: {', '.join(f'{x:.2f}' for x in r)} MP/s [{card}]")
+    say(f"host Huffman decode alone (decode_coefficients, {len(tiles_jpeg)} tiles): "
+        f"{host_huffman_rate(tiles_jpeg):.2f} MP/s [{card}]")
     say(f"host decode + assembly alone (no encode): {host_assembly_rate(tiles_png):.2f} MP/s "
         f"[{card}]")
     say(f"host deflate alone (level 6, filtered rows): {host_deflate_rate(tiles, dev):.2f} MP/s "
         f"[{card}]")
-    n_bands = GRID * TILE // BAND_ROWS
-    for name, opts in (("grid_jpeg ri=1", grid_jpeg), ("grid_png", grid_png)):
+    for name, opts in (("grid_jpeg ri=1", grid_jpeg), ("jpeg_tiles ri=1", grid_tiles),
+                       ("grid_png", grid_png)):
         p = device_profile(opts, dev)
         say(f"profiled torch run {name}: wall {p['wall_ms']:.1f} ms, device busy "
             f"{p['device_ms']:.1f} ms ({100 * p['device_ms'] / p['wall_ms']:.2f}% of wall), "
@@ -840,6 +1245,19 @@ def main() -> None:
          "bound_ms": bound_ms(moved["composite"]), "bound_by": "bytes",
          "library_ms": None},
     ]
+    for name, tag, source, replaces in (
+        ("idct_dequant", "idct", "idct.cu", "image_stitch_tpu/ops/jpeg_idct_device.py:521"),
+        ("ycc_rgba", "ycc", "ycc.cu", "image_stitch_tpu/ops/jpeg_idct_device.py:437 and :457 "
+                                      "(image_stitch_tpu/codecs/jpeg/device_decoder.py:57)"),
+        ("fdct_quant", "fdct", "fdct_quant.cu", "image_stitch_tpu/ops/device.py:204 and :224"),
+        ("symbol_streams", "symbols", "symbols.cu",
+         "image_stitch_tpu/ops/jpeg_entropy_device.py:560 and :286"),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"image_stitch_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
+            "ms": t[f"{tag}_device"]["median"], "plain_ms": t[f"{tag}_plain"]["median"],
+            "bound_ms": bound_ms(moved[tag]), "bound_by": "bytes", "library_ms": None})
     for k in kernels:
         say(f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "
             f"({100 * k['bound_ms'] / k['ms']:.1f}% of it) [{card}]")

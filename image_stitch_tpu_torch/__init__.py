@@ -6,11 +6,13 @@ hold it to, byte for byte. Grid and positioned inputs (PNG, JPEG, HEIC
 and arrays) go to JPEG or PNG output (8-bit and 16-bit): host decode,
 layout, band assembly and deflate are the port's own copies of the JAX
 package's framework-free modules, at the same paths. On
-``device`` run, in torch: JPEG quantize and entropy symbols (plain torch),
-the entropy pack and merge; PNG filter select; and the positioned alpha
-compositing of 8-bit bands. The last three are hand-written CUDA kernels
-(``csrc/``, built with nvcc for sm_90a on first use). The package imports
-nothing of jax or of ``image_stitch_tpu``.
+``device`` run hand-written CUDA kernels (``csrc/``, built with nvcc for
+sm_90a on first use): for JPEG output, quantize, entropy symbols and the
+entropy pack and merge; for JPEG tiles into JPEG output, the band decode
+after the host's Huffman stage (dequantize and IDCT, upsampling and
+colour); for PNG output, filter select; and the positioned alpha
+compositing of 8-bit bands. The package imports nothing of jax or of
+``image_stitch_tpu``.
 """
 
 from __future__ import annotations

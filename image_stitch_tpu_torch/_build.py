@@ -41,6 +41,8 @@ GXX_FLAGS = ["-std=c++17", "-O2", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U32 = ctypes.c_uint32
+_I64 = ctypes.c_int64
+_GEOM = ctypes.POINTER(ctypes.c_int32)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -137,6 +139,14 @@ def load_cuda_kernels() -> ctypes.CDLL:
         lib.filter_select_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.composite_segments_launch.restype = _I
         lib.composite_segments_launch.argtypes = [_P, _I, _P, _U32, _P, _I, _I, _P, _P]
+        lib.idct_dequant_launch.restype = _I
+        lib.idct_dequant_launch.argtypes = [_P, _I, _I, _P, _I, _P, _P]
+        lib.ycc_rgba_launch.restype = _I
+        lib.ycc_rgba_launch.argtypes = [_P, _P, _P, _GEOM, _I, _P, _I64, _I, _I, _I, _P]
+        lib.fdct_quant_launch.restype = _I
+        lib.fdct_quant_launch.argtypes = [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P]
+        lib.symbol_streams_launch.restype = _I
+        lib.symbol_streams_launch.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
         _loaded["cuda"] = lib
     return _loaded["cuda"]
 
@@ -174,5 +184,15 @@ def load_host_shim() -> ctypes.CDLL:
         lib.alpha_over_host.argtypes = [_P, _P, _I]
         lib.composite_segments_host.restype = _I
         lib.composite_segments_host.argtypes = [_P, _I, _P, _P, _P, _I, _I]
+        lib.idct_dequant_host.restype = None
+        lib.idct_dequant_host.argtypes = [_P, _I, _I, _P, _I, _P]
+        lib.ycc_rgba_host.restype = None
+        lib.ycc_rgba_host.argtypes = [_P, _P, _P, _GEOM, _I, _P, _I64, _I, _I, _I]
+        lib.fdct_quant_host.restype = None
+        lib.fdct_quant_host.argtypes = [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P]
+        lib.symbol_streams_host.restype = None
+        lib.symbol_streams_host.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]
+        lib.fdct_quantize_host.restype = None
+        lib.fdct_quantize_host.argtypes = [_P, _P, _P, _I]
         _loaded["host"] = lib
     return _loaded["host"]

@@ -114,6 +114,14 @@ class CachedDecoder:
             for row in band:
                 yield row
 
+    def device_band_decoder(self, device):
+        """Pass the device band tier through the cache view: decode_band
+        is stateless random access, so consumers at independent positions
+        can share one underlying DeviceJpegDecoder."""
+        self._entry.ensure_header()
+        get = getattr(self._entry._decoder, "device_band_decoder", None)
+        return get(device) if get is not None else None
+
     def close(self) -> None:
         pass  # shared entry lifecycle is owned by the cache
 

@@ -114,6 +114,7 @@ class JpegDecoder:
             raise StitchError(f"Unsupported JPEG source type: {type(source).__name__}")
         self._header: ImageHeader | None = None
         self._pixels: np.ndarray | None = None
+        self._dev_decoder = None  # None = untried, False = unavailable
         self._band_height = self._options.band_height or DEFAULT_BAND_HEIGHT
 
     def get_header(self) -> ImageHeader:
@@ -158,8 +159,34 @@ class JpegDecoder:
             for row in band:
                 yield row
 
+    def device_band_decoder(self, device):
+        """The device band tier for this stream on ``device`` (host Huffman
+        once, cached): random-access ``decode_band`` of RGBA on the
+        device, bit-identical to the host tiers. None when the stream is
+        outside the tier's bounds (DeviceJpegDecoder.safe), the header
+        disagrees, or pixels are contract-defined by an injected custom
+        decoder."""
+        if (self._options.custom_decoders or {}).get("jpeg") is not None:
+            return None
+        if self._dev_decoder is None:
+            dev = None
+            try:
+                from .device_decoder import DeviceJpegDecoder
+
+                cand = DeviceJpegDecoder(self._data, device)
+                hdr = self.get_header()
+                if cand.safe and (cand.width, cand.height) == (
+                    hdr.width, hdr.height
+                ):
+                    dev = cand
+            except StitchError:
+                dev = None
+            self._dev_decoder = dev if dev is not None else False
+        return self._dev_decoder.to(device) if self._dev_decoder else None
+
     def close(self) -> None:
         self._pixels = None
+        self._dev_decoder = None
 
 
 class JpegFileDecoder(JpegDecoder):

@@ -4,8 +4,12 @@
 (image_stitch_tpu/codecs/jpeg/encoder.py) with its fused device path as the
 only path: headers, strip buffering, edge padding, restart-group alignment,
 the in-flight queue (``STITCH_TPU_INFLIGHT``) and ``finish`` are that
-class's, copied; every band goes to ``TorchJpegEncoder`` on ``device``,
-which uploads it itself. Contract preserved from the reference
+class's, copied; every band goes to ``TorchJpegEncoder`` on ``device``.
+A band may be a host array, which ``TorchJpegEncoder`` uploads, or a
+tensor on ``device`` (decoded or blended there), which stays there: its
+pending rows, edge padding and restart-group holdback are torch ops on the
+device. Host and device bands may alternate in one stream. Contract
+preserved from the reference
 (src/jpeg-encoder.ts:96-264):
 - consumes 8-row RGBA MCU strips; SOI + headers are emitted with the first
   strip so ``header()`` yields nothing (jpeg-encoder.ts:123-152);
@@ -25,6 +29,7 @@ import os
 from typing import Iterator
 
 import numpy as np
+import torch
 
 from ...errors import StitchError
 from ...ops.counters import EncodeCounters
@@ -44,6 +49,15 @@ from .tables import (
 )
 
 MCU_HEIGHT = 8
+
+
+def _repeat_edge(a, n: int, axis: int):
+    """``a`` with its last row (axis 0) or column (axis 1) repeated ``n``
+    more times: a host array or a tensor, as given."""
+    edge = a[-1:] if axis == 0 else a[:, -1:]
+    if isinstance(a, torch.Tensor):
+        return torch.cat([a, edge.repeat_interleave(n, dim=axis)], dim=axis)
+    return np.concatenate([a, np.repeat(edge, n, axis=axis)], axis=axis)
 
 
 def local_words_for_quality(quality: int) -> int:
@@ -92,7 +106,7 @@ class TorchStreamingJpegEncoder:
         self._mcus_per_row = (width + ((-width) % _mcu_px)) // _mcu_px
         self._header_emitted = False
         self._finished = False
-        self._pending: np.ndarray | None = None  # buffered rows < mcu height
+        self._pending = None  # buffered rows < mcu height: array or tensor
         self._pad_w = (-width) % (16 if sampling == "420" else 8)
         # Device pipeline depth: submissions in flight before the oldest is
         # drained. Depth >1 overlaps host decode/assembly of later bands
@@ -163,11 +177,16 @@ class TorchStreamingJpegEncoder:
 
     # ----- strips ------------------------------------------------------- #
 
-    def encode_band(self, band: np.ndarray) -> Iterator[bytes]:
-        """Consume an (h, W, 4) uint8 host band; yields encoded bytes."""
+    def encode_band(self, band) -> Iterator[bytes]:
+        """Consume an (h, W, 4) uint8 band, a host array or a tensor on the
+        encoder's device (a tensor elsewhere raises); yields encoded
+        bytes."""
         if self._finished:
             raise StitchError("JPEG encoder already finished")
-        band = np.asarray(band, dtype=np.uint8)
+        if isinstance(band, torch.Tensor):
+            band = self._dev_encoder.on_device(band)
+        else:
+            band = np.asarray(band, dtype=np.uint8)
         if band.shape[1] != self.width:
             raise StitchError(
                 f"Band width {band.shape[1]} != encoder width {self.width}"
@@ -176,7 +195,7 @@ class TorchStreamingJpegEncoder:
             self._header_emitted = True
             yield self._header_bytes()
         if self._pending is not None:
-            band = np.concatenate([self._pending, band], axis=0)
+            band = self._join(self._pending, band)
             self._pending = None
         # With restarts, submit whole restart groups only (groups pack
         # independently on device; a shorter group is legal only as the
@@ -191,9 +210,7 @@ class TorchStreamingJpegEncoder:
             # One-band lookahead: submit this band (device computes + packs
             # bits), emit the previous band's bytes meanwhile.
             if self._pad_w:
-                full = np.concatenate(
-                    [full, np.repeat(full[:, -1:], self._pad_w, axis=1)], axis=1
-                )
+                full = _repeat_edge(full, self._pad_w, axis=1)
             self._inflight.append(self._dev_encoder.submit(full))
             while len(self._inflight) > self._inflight_depth:
                 data = self._dev_encoder.wait(self._inflight.popleft())
@@ -201,7 +218,16 @@ class TorchStreamingJpegEncoder:
                     yield data
         rest = band[n_full * self._mcu_h :]
         if rest.shape[0]:
-            self._pending = rest.copy()
+            # A tensor's rows are a view: nothing writes to a submitted band.
+            self._pending = rest.copy() if isinstance(rest, np.ndarray) else rest
+
+    def _join(self, pending, band):
+        """Held-back rows, then the band: on the host when both are host
+        arrays, else on the device (alpha dropped: JPEG ignores it)."""
+        if isinstance(pending, np.ndarray) and isinstance(band, np.ndarray):
+            return np.concatenate([pending, band], axis=0)
+        parts = [self._dev_encoder.on_device(a)[..., :3] for a in (pending, band)]
+        return torch.cat(parts, dim=0)
 
     def finish(self) -> Iterator[bytes]:
         """Pad any partial final strip with edge-row repetition, flush bits,
@@ -221,16 +247,12 @@ class TorchStreamingJpegEncoder:
             # holdback); pad to the next MCU-height multiple.
             pad_rows = (-part.shape[0]) % self._mcu_h
             if pad_rows:
-                part = np.concatenate(
-                    [part, np.repeat(part[-1:], pad_rows, axis=0)], axis=0
-                )
+                part = _repeat_edge(part, pad_rows, axis=0)
         # Drain the device pipeline; the padded partial strip goes through
         # the same device path so the carry chain stays on device.
         if part is not None:
             if self._pad_w:
-                part = np.concatenate(
-                    [part, np.repeat(part[:, -1:], self._pad_w, axis=1)], axis=1
-                )
+                part = _repeat_edge(part, self._pad_w, axis=1)
             self._inflight.append(self._dev_encoder.submit(part))
         while self._inflight:
             out += self._dev_encoder.wait(self._inflight.popleft())

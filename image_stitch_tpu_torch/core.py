@@ -1,12 +1,15 @@
 """The streaming orchestrator (L6) — band-at-a-time canvas assembly, with
 the per-band device work in torch.
 
-A copy of ``image_stitch_tpu/core.py`` whose encode and positioned
-compositing stages run on a torch ``device``: each assembled band goes to a
-``TorchStreamingJpegEncoder`` or, for PNG output, to ``TorchBackend``'s
-filter select; positioned 8-bit bands with alpha blending composite on the
-device (``DeviceCompositor``). The JAX package's backend resolution, mesh
-and grid device-decode fast path are not part of the copy.
+A copy of ``image_stitch_tpu/core.py`` whose encode, positioned
+compositing and JPEG-tile decode stages run on a torch ``device``: each
+assembled band goes to a ``TorchStreamingJpegEncoder`` or, for PNG output,
+to ``TorchBackend``'s filter select; positioned 8-bit bands with alpha
+blending composite on the device (``DeviceCompositor``) and go to either
+encoder as tensors. For JPEG output, grid bands tiled by JPEG inputs are
+decoded on the device (``DeviceJpegDecoder``: host Huffman once, the pixel
+math per band there) and handed to the encoder without leaving it. The JAX
+package's backend resolution and mesh are not part of the copy.
 
 Counterpart of the reference's ``CoreStreamingConcatenator``
 (src/image-concat-core.ts:279-1473), redesigned TPU-first: where the
@@ -201,6 +204,7 @@ class RowSource:
         )
         self._buf: np.ndarray | None = None  # converted rows not yet served
         self.rows_served = 0
+        self._dev_state: tuple | None = None  # lazily probed device tier
         self._progress = progress
         self._context: tuple[int, int] | None = None  # (grid_row, grid_col) 1-based
 
@@ -317,6 +321,32 @@ class RowSource:
         if n <= 0:
             return
         self.take(n)
+
+    def device_decoder(self, device: torch.device):
+        """The underlying decoder's device band tier on ``device``
+        (random-access ``decode_band``, bit-identical to the host tiers),
+        or None. A source that has one is served ONLY through it by the
+        grid device path: ``take()`` is never mixed in, so the sequential
+        iterator's cursor cannot diverge."""
+        if self._dev_state is None:
+            dev = None
+            get = getattr(self._decoder, "device_band_decoder", None)
+            if get is not None and self.header.bit_depth == 8:
+                dev = get(device)
+                if dev is not None and (dev.width, dev.height) != (
+                    self.header.width, self.header.height
+                ):  # pragma: no cover - decoder validates its own header
+                    dev = None
+            self._dev_state = (dev,)
+        return self._dev_state[0]
+
+    def note_rows_served(self, n: int) -> None:
+        """Account rows served OUTSIDE take() (the device decode path
+        reads by random access): progress and completion bookkeeping."""
+        self.rows_served += n
+        if self._progress is not None:
+            self._progress.consumed(self.image_idx, n)
+
 
 def _bands_from_rows(rows: Iterator[np.ndarray], band_height: int):
     buf: list[np.ndarray] = []
@@ -568,10 +598,11 @@ class TorchStreamingConcatenator:
         gl: GridLayout,
         sources: Sequence[RowSource],
         out_header: PngHeader,
-    ) -> Iterator[np.ndarray]:
+    ) -> Iterator[np.ndarray | torch.Tensor]:
         """Assemble output bands for the grid (reference hot loop:
         generateFilteredScanlines / generateRawScanlines,
-        image-concat-core.ts:389-549 / :691-836 — here whole bands at once)."""
+        image-concat-core.ts:389-549 / :691-836 — here whole bands at once).
+        A band decoded on the device is yielded as a tensor there."""
         opts = self.options
         bg = background_pixel(out_header.bit_depth, opts.background_color)
         dtype = np.uint16 if out_header.bit_depth == 16 else np.uint8
@@ -624,32 +655,102 @@ class TorchStreamingConcatenator:
         ]
         pool = self._host_pool()
 
+        # ---- device decode fast path ----------------------------------- #
+        # JPEG sources expose a device band tier (host Huffman once, the
+        # pixel math per band on self.device); when the bands go to the
+        # JPEG encoder on that device, a band fully tiled by such sources
+        # is decoded there, each tile written at its x offset into one band
+        # tensor, and decoded pixels never cross the link. Output bytes are
+        # identical by the tier's exactness, so the gate only routes.
+        import os as _os
+
+        dev_gate = (
+            opts.output_format == "jpeg"
+            and dtype == np.uint8
+            and _os.environ.get("STITCH_TPU_DEVICE_DECODE", "1") != "0"
+        )
+        placement_y0 = {p[0]: p[1] for p in placements}
+        dev_cache: dict[int, object] = {}
+
+        def dev_for(image_idx: int):
+            """Device tier for a source (None = host-served). Deterministic
+            per source: a device-served source never mixes with take()."""
+            if not dev_gate:
+                return None
+            if image_idx not in dev_cache:
+                dev_cache[image_idx] = sources[image_idx].device_decoder(self.device)
+            return dev_cache[image_idx]
+
+        def dev_rows(image_idx: int, seg_y0: int, seg_y1: int, out=None, x0: int = 0):
+            """The segment's rows from the device tier: into ``out`` at
+            column x0 (a band tensor), or as a host array."""
+            dev = dev_cache[image_idx]
+            ly0 = seg_y0 - placement_y0[image_idx]
+            rows = dev.decode_band(ly0, ly0 + (seg_y1 - seg_y0), return_device=out is not None,
+                                   out=out, x0=x0)
+            src = sources[image_idx]
+            src.note_rows_served(seg_y1 - seg_y0)
+            if src.rows_served >= src.header.height:
+                dev_cache[image_idx] = None  # free the coefficient arrays
+                src._dev_state = (None,)
+            return rows
+
         def make_plan(band_y0: int, h: int):
-            """(active, futs): the band's segments, with pool futures for
-            their pulls when host_threads > 1."""
+            """("device", segs, None) when the band is fully tiled by
+            full-height device-decodable segments; else ("host", active,
+            futs) with pool futures for the take()-served segments only."""
             active = band_active(band_y0, h)
+            if dev_gate and active:
+                segs = sorted(active, key=lambda a: a[1])
+                x_cursor = 0
+                ok = True
+                for image_idx, x0, img_w, seg_y0, seg_y1 in segs:
+                    if (
+                        seg_y0 != band_y0
+                        or seg_y1 != band_y0 + h
+                        or x0 != x_cursor
+                        or dev_for(image_idx) is None
+                    ):
+                        ok = False
+                        break
+                    x_cursor = x0 + img_w
+                if ok and x_cursor == width:
+                    return ("device", segs, None)
             futs = None
             if pool is not None:
-                # One pull per input (each input owns one grid cell, so
-                # takes touch disjoint sources); placement order keeps
-                # bytes and first-error identical to serial.
+                # One pull per take()-served input (each input owns one
+                # grid cell, so takes touch disjoint sources); placement
+                # order keeps bytes and first-error identical to serial.
                 futs = [
                     pool.submit(sources[image_idx].take, seg_y1 - seg_y0)
+                    if dev_for(image_idx) is None
+                    else None
                     for image_idx, _x0, _w, seg_y0, seg_y1 in active
                 ]
-            return (active, futs)
+            return ("host", active, futs)
 
         pending = None  # lookahead: band N+1 decodes while N encodes
         for band_idx, (band_y0, h) in enumerate(band_specs):
             if band_idx and band_idx % 16 == 0:
                 trim_malloc()  # keep RSS at the live set, not the high-water
-            active, futs = pending if pending is not None else make_plan(band_y0, h)
+            plan = pending if pending is not None else make_plan(band_y0, h)
             pending = None
+            if plan[0] == "device":
+                band_dev = torch.empty((h, width, 4), dtype=torch.uint8, device=self.device)
+                for image_idx, x0, _w, seg_y0, seg_y1 in plan[1]:
+                    dev_rows(image_idx, seg_y0, seg_y1, out=band_dev, x0=x0)
+                if band_idx + 1 < len(band_specs):
+                    pending = make_plan(*band_specs[band_idx + 1])
+                yield band_dev
+                continue
+            active, futs = plan[1], plan[2]
             canvas = np.empty((h, width, 4), dtype=dtype)
             if not covered_rows[band_y0 : band_y0 + h].all():
                 canvas[:] = bg
             for i, (image_idx, x0, img_w, seg_y0, seg_y1) in enumerate(active):
-                if futs is not None:
+                if dev_for(image_idx) is not None:
+                    rows = dev_rows(image_idx, seg_y0, seg_y1)
+                elif futs is not None and futs[i] is not None:
                     rows = futs[i].result()
                 else:
                     rows = sources[image_idx].take(seg_y1 - seg_y0)
@@ -897,8 +998,8 @@ class TorchStreamingConcatenator:
     ) -> Iterator[bytes]:
         """JPEG encode over 8-row MCU strips (reference: streamJpegData,
         image-concat-core.ts:837-925; edge-pixel repetition for the partial
-        final strip happens inside the encoder). The encoder takes host
-        bands: a band blended on the device is read back."""
+        final strip happens inside the encoder). A band decoded or blended
+        on the device goes to the encoder as a tensor, with no read-back."""
         encoder = TorchStreamingJpegEncoder(
             width=out_header.width,
             height=out_header.height,
@@ -910,8 +1011,7 @@ class TorchStreamingConcatenator:
         )
         yield from encoder.header()
         for canvas in bands:
-            canvas = _to_host(canvas)
-            if canvas.dtype != np.uint8 or canvas.ndim != 3:
+            if canvas.dtype not in (np.uint8, torch.uint8) or canvas.ndim != 3:
                 raise StitchError("JPEG encoding requires 8-bit canvas bands")
             self.stats.record_band(canvas.shape[0], canvas.shape[1])
             yield from encoder.encode_band(canvas)

@@ -7,8 +7,12 @@
 #include <stdint.h>
 
 #include "composite.cuh"
+#include "fdct_quant.cuh"
 #include "filter.cuh"
+#include "idct.cuh"
 #include "pack_merge.cuh"
+#include "symbols.cuh"
+#include "ycc.cuh"
 
 // The pairs of each block run in order with a running sum of their lengths:
 // the serial chain that the kernel's warp scan reproduces.
@@ -123,4 +127,75 @@ extern "C" int composite_segments_host(const int64_t* metas, int s_count,
     }
   }
   return ties;
+}
+
+// The IDCT of each block as the card's threads split it: the 8 column
+// passes into the workspace, then the 8 row passes.
+extern "C" void idct_dequant_host(const int16_t* zz, int n_blocks, int k, const int32_t* q,
+                                  int bx, uint8_t* out) {
+  static const uint8_t nat_to_zz[64] = JPEG_NATURAL_TO_ZIGZAG;
+  for (int b = 0; b < n_blocks; ++b) {
+    int64_t ws[8][8];  // [column][row]
+    for (int c = 0; c < 8; ++c) idct_column(zz + (size_t)b * k, k, q, nat_to_zz, c, ws[c]);
+    const int by = b / bx, bxi = b % bx;
+    for (int r = 0; r < 8; ++r) {
+      int64_t v[8];
+      for (int c = 0; c < 8; ++c) v[c] = ws[c][r];
+      idct_row(v, out + (size_t)(by * 8 + r) * (size_t)(bx * 8) + (size_t)bxi * 8);
+    }
+  }
+}
+
+// ycc_pixel at every pixel of the tile, into out's columns [x0, x0 + w).
+extern "C" void ycc_rgba_host(const uint8_t* p0, const uint8_t* p1, const uint8_t* p2,
+                              const int32_t* geom, int n_comp, uint8_t* out,
+                              long long out_stride, int x0, int h, int w) {
+  const uint8_t* planes[3] = {p0, p1, p2};
+  YccComp comps[3];
+  for (int i = 0; i < n_comp; ++i) {
+    const int32_t* g = geom + 7 * i;
+    comps[i] = YccComp{planes[i], g[0], g[1], g[2], g[3], g[4], g[5], g[6]};
+  }
+  for (int y = 0; y < h; ++y) {
+    for (int x = 0; x < w; ++x) {
+      const uint32_t word = ycc_pixel(comps, n_comp, y, x);
+      memcpy(out + (size_t)y * (size_t)out_stride + (size_t)(x0 + x) * 4, &word, 4);
+    }
+  }
+}
+
+// Each block of each component, in the kernel's orders.
+extern "C" void fdct_quant_host(const uint8_t* band, int h, int w, int ch, const int32_t* lq,
+                                const int32_t* cq, int s420, int16_t* y, int16_t* cb,
+                                int16_t* cr) {
+  const int n_luma = (h / 8) * (w / 8);
+  int16_t* outs[3] = {y, cb, cr};
+  for (int comp = 0; comp < 3; ++comp) {
+    const int n = comp == 0 || !s420 ? n_luma : n_luma / 4;
+    for (int i = 0; i < n; ++i) {
+      int y0, x0;
+      fdct_block_origin(i, comp, w, s420 != 0, &y0, &x0);
+      int32_t s[64];
+      fdct_gather(band, w, ch, comp, y0, x0, s420 != 0 && comp != 0, s);
+      fdct_quant_block(s, comp == 0 ? lq : cq, outs[comp] + (size_t)i * 64);
+    }
+  }
+}
+
+// symbol_block_at for every block of the MCU sequence; prev_dc is null for
+// restart groups.
+extern "C" void symbol_streams_host(const int16_t* y, const int16_t* cb, const int16_t* cr,
+                                    int n_mcu, int s420, int n_groups, const int32_t* prev_dc,
+                                    const int32_t* luts, int32_t* codes, int32_t* lens) {
+  static const uint8_t zigzag[64] = JPEG_ZIGZAG_ORDER;
+  const int n_blocks = n_mcu * (s420 ? 6 : 3);
+  for (int b = 0; b < n_blocks; ++b) {
+    symbol_block_at(b, n_blocks, s420 != 0, n_groups, y, cb, cr, prev_dc, luts, zigzag,
+                    codes + (size_t)b * SYM_SLOTS, lens + (size_t)b * SYM_SLOTS);
+  }
+}
+
+// fdct_quantize of each (coefficient, quantizer) pair.
+extern "C" void fdct_quantize_host(const int32_t* c, const int32_t* q, int16_t* out, int n) {
+  for (int i = 0; i < n; ++i) out[i] = fdct_quantize(c[i], q[i]);
 }

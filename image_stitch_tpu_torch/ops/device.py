@@ -2,10 +2,11 @@
 
 ``jpeg_quantize`` and ``jpeg_quantize_420`` are the counterparts of
 ``image_stitch_tpu/ops/device.py::jpeg_quantize_trace`` and
-``jpeg_quantize_420_trace``; they run on whatever device the band lies on,
-in plain torch (ROADMAP.md lists their hand kernel as the next to write).
-``TorchBackend`` is the counterpart of that module's ``JaxBackend`` for PNG
-output: its filter select is the CUDA kernel ``kernels.filter_select``.
+``jpeg_quantize_420_trace``: on a CUDA band they launch the kernel
+``kernels.fdct_quant`` (csrc/fdct_quant.cu), on a CPU band its plain
+version (``ops/jpeg_dct.py``). ``TorchBackend`` is the counterpart of that
+module's ``JaxBackend`` for PNG output: its filter select is the CUDA
+kernel ``kernels.filter_select``.
 """
 
 from __future__ import annotations
@@ -16,22 +17,21 @@ import numpy as np
 import torch
 
 from .counters import EncodeCounters
-from .jpeg_dct import band_to_blocks_islow, band_to_blocks_islow_420
-from .kernels import filter_select, png_bytes
+from .kernels import fdct_quant, filter_select, png_bytes
 
 
 def jpeg_quantize(band: torch.Tensor, luma_q: torch.Tensor, chroma_q: torch.Tensor):
     """YCbCr + FDCT + quantize of a (H, W, >=3) uint8 band, H and W
     multiples of 8. Returns (y, cb, cr), each (H/8 * W/8, 64) int16
     natural-order blocks, strip-major."""
-    return band_to_blocks_islow(band, luma_q, chroma_q)
+    return fdct_quant(band, luma_q, chroma_q, "444")
 
 
 def jpeg_quantize_420(band: torch.Tensor, luma_q: torch.Tensor, chroma_q: torch.Tensor):
     """4:2:0 quantize of a (16k, W, >=3) uint8 band with W % 16 == 0.
     Returns (y (4n, 64) in MCU order [TL, TR, BL, BR], cb (n, 64),
     cr (n, 64)) int16, n MCUs raster-major."""
-    return band_to_blocks_islow_420(band, luma_q, chroma_q)
+    return fdct_quant(band, luma_q, chroma_q, "420")
 
 
 @dataclass

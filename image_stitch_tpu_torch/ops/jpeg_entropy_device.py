@@ -6,8 +6,10 @@ Port of ``image_stitch_tpu/ops/jpeg_entropy_device.py``. Per band:
 1. ``_symbol_streams_flat`` (restart groups, DC chains reset at each group)
    or ``_symbol_streams`` (one carried stream, DC carried in ``prev_dc``)
    turn quantized blocks into (B, 65) Huffman (code, length) slots: DC,
-   63 AC positions, EOB. Plain torch: a gather for the zigzag order, a
-   ``cummax`` for run lengths, LUT gathers for the codes.
+   63 AC positions, EOB, through ``kernels.symbol_streams``
+   (csrc/symbols.cu). Its plain version, ``symbol_streams_plain``: a
+   gather for the zigzag order, a ``cummax`` for run lengths, LUT gathers
+   for the codes.
 2. ``pack_merge`` (csrc/pack_merge.cu) packs each block's slots into
    words pre-aligned to the block's global start bit and adds them into
    the dense stream, in one launch.
@@ -35,7 +37,7 @@ from ..codecs.jpeg.huffman import BitPacker, HuffmanEncoder, interleave_mcus
 from ..codecs.jpeg.tables import ZIGZAG, huffman_lut
 from .counters import EncodeCounters
 from .device import jpeg_quantize, jpeg_quantize_420
-from .kernels import pack_merge
+from .kernels import pack_merge, symbol_streams
 
 # Packed-output budget in bits per pixel before the first band reports,
 # and its ceiling (the JAX package's values).
@@ -43,6 +45,14 @@ DEFAULT_CAP_BITS_PER_PX = 3
 MAX_CAP_BITS_PER_PX = 12
 # Largest per-block word budget (768 bits per block).
 LOCAL_WORDS = 24
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with its index: "cuda" is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _to_int32(a: np.ndarray, device) -> torch.Tensor:
@@ -61,7 +71,25 @@ def entropy_luts_from_numpy(luts: Mapping[str, np.ndarray], device) -> dict:
     no host-to-device copy per band."""
     out = {k: _to_int32(v, device) for k, v in luts.items()}
     out["zigzag"] = torch.as_tensor(np.asarray(ZIGZAG, np.int64)).to(device)
+    out["packed"] = pack_symbol_luts(out)
     return out
+
+
+_PACKED_LUTS = (("dc_code", 32), ("dc_len", 32), ("ac_code", 512), ("ac_len", 512),
+                ("zrl_code", 2), ("zrl_len", 2), ("eob_code", 2), ("eob_len", 2))
+
+
+def pack_symbol_luts(luts: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The symbol tables as one int32 tensor, in the layout of
+    csrc/symbols.cuh (SYM_DC_CODE ... SYM_EOB_LEN), for the kernel to stage
+    in shared memory."""
+    parts = []
+    for name, size in _PACKED_LUTS:
+        t = luts[name].reshape(-1).to(torch.int32)
+        if t.numel() != size:
+            raise ValueError(f"{name}: expected {size} values, got {t.numel()}")
+        parts.append(t)
+    return torch.cat(parts)
 
 
 def build_entropy_luts(dc_luma, ac_luma, dc_chroma, ac_chroma, device) -> dict:
@@ -164,35 +192,41 @@ def _streams_from_diffs(zz, tsel, diffs, luts):
     return torch.where(lens > 0, codes, 0).to(torch.int32), lens.to(torch.int32)
 
 
-def _symbol_streams_flat(yb, cbb, crb, luts, n_groups: int, sampling: str = "444"):
-    """Restart-group symbol streams over one flat block array: DC chains per
-    component reset to 0 at every group boundary (T.81 E.2.4). Returns
-    (codes, lens), each (B, 65) int32, B blocks in MCU scan order."""
+def symbol_streams_plain(yb, cbb, crb, luts, n_groups: int = 1, sampling: str = "444",
+                         prev_dc: torch.Tensor | None = None):
+    """Plain torch symbol streams over one flat block array in MCU scan
+    order: each component's DC chain restarts from 0 at every one of
+    ``n_groups`` equal restart groups (T.81 E.2.4), or continues from
+    ``prev_dc`` ((3,) int32, one group). Returns (codes, lens), each
+    (B, 65) int32. The plain version of ``kernels.symbol_streams``."""
     n = cbb.shape[0]
     zz, tsel = _mcu_sequence(yb, cbb, crb, luts, sampling)
     parts = []
-    for c, k in zip((yb, cbb, crb), _per_mcu(sampling)):
+    for ci, (c, k) in enumerate(zip((yb, cbb, crb), _per_mcu(sampling))):
         dc_c = c[:, 0].to(torch.int32).reshape(n_groups, -1)
-        prev_c = torch.nn.functional.pad(dc_c[:, :-1], (1, 0))
+        if prev_dc is None:
+            first = torch.zeros((n_groups, 1), dtype=torch.int32, device=dc_c.device)
+        else:
+            first = prev_dc[ci : ci + 1].to(torch.int32).reshape(1, 1)
+        prev_c = torch.cat([first, dc_c[:, :-1]], dim=1)
         parts.append((dc_c - prev_c).reshape(n, k))
     diffs = torch.cat(parts, dim=1).reshape(-1)
     return _streams_from_diffs(zz, tsel, diffs, luts)
 
 
+def _symbol_streams_flat(yb, cbb, crb, luts, n_groups: int, sampling: str = "444"):
+    """Restart-group symbol streams: DC chains reset to 0 at every group
+    boundary. Returns (codes, lens), each (B, 65) int32, B blocks in MCU
+    scan order."""
+    return symbol_streams(yb, cbb, crb, luts, n_groups, sampling)
+
+
 def _symbol_streams(yb, cbb, crb, luts, prev_dc, sampling: str = "444"):
     """Carried symbol streams: each component's DC chain continues from
     ``prev_dc`` ((3,) int32). Returns (codes, lens, new_dc)."""
-    n = cbb.shape[0]
-    zz, tsel = _mcu_sequence(yb, cbb, crb, luts, sampling)
-    parts, new_dc = [], []
-    for ci, (c, k) in enumerate(zip((yb, cbb, crb), _per_mcu(sampling))):
-        dc_c = c[:, 0].to(torch.int32)
-        prev_c = torch.cat([prev_dc[ci : ci + 1].to(torch.int32), dc_c[:-1]])
-        parts.append((dc_c - prev_c).reshape(n, k))
-        new_dc.append(dc_c[-1])
-    diffs = torch.cat(parts, dim=1).reshape(-1)
-    codes, lens = _streams_from_diffs(zz, tsel, diffs, luts)
-    return codes, lens, torch.stack(new_dc)
+    codes, lens = symbol_streams(yb, cbb, crb, luts, 1, sampling, prev_dc=prev_dc)
+    new_dc = torch.stack([c[-1, 0].to(torch.int32) for c in (yb, cbb, crb)])
+    return codes, lens, new_dc
 
 
 def _exclusive_cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -274,8 +308,8 @@ class TorchJpegEncoder:
     """Streaming band encoder on a torch device; the counterpart of
     ``image_stitch_tpu.ops.jpeg_entropy_device.DeviceJpegEncoder``.
 
-    ``submit`` uploads a host band and queues quantize, symbols, pack and
-    merge on the device, threading the DC predictors and the bit offset of
+    ``submit`` takes a band on the device, or uploads a host band, and
+    queues quantize, symbols, pack and merge there, threading the DC predictors and the bit offset of
     the carried stream through device tensors, so consecutive submits never
     wait for the device. ``wait`` is the only place that reads device
     values back. With ``restart_interval_rows`` > 0 each band is packed as
@@ -292,7 +326,7 @@ class TorchJpegEncoder:
                  restart_interval_rows: int = 0, sampling: str = "444",
                  local_words: int = LOCAL_WORDS,
                  counters: EncodeCounters | None = None):
-        self.device = torch.device(device)
+        self.device = canonical_device(device)
         self.counters = counters if counters is not None else EncodeCounters()
         self._local_words = int(local_words)
         self._lq = _to_int32(luma_q, self.device)
@@ -320,20 +354,34 @@ class TorchJpegEncoder:
         dropped first (JPEG ignores it). A CUDA upload goes through pinned
         memory so that it is queued and does not wait."""
         if not isinstance(band, np.ndarray) or band.dtype != np.uint8 or band.ndim != 3:
-            raise TypeError("TorchJpegEncoder.submit takes a host (H, W, C) uint8 ndarray")
+            raise TypeError("TorchJpegEncoder takes an (H, W, C) uint8 ndarray or tensor")
         host = torch.from_numpy(np.ascontiguousarray(band[..., :3]))
         if self.device.type == "cuda":
             return host.pin_memory().to(self.device, non_blocking=True)
         return host.to(self.device)
 
+    def on_device(self, band) -> torch.Tensor:
+        """``band`` as an (H, W, C >= 3) uint8 tensor on the encoder's
+        device: a tensor is taken where it lies, and must lie there (no
+        copy from another device); a host array is uploaded."""
+        if not isinstance(band, torch.Tensor):
+            return self._upload(band)
+        if band.device != self.device:
+            raise ValueError(f"band on {band.device}, the encoder runs on {self.device}")
+        if band.dtype != torch.uint8 or band.ndim != 3 or band.shape[2] < 3:
+            raise TypeError(f"expected an (H, W, C >= 3) uint8 band, got "
+                            f"{tuple(band.shape)} {band.dtype}")
+        return band.contiguous()
+
     def _quantize(self, band: torch.Tensor):
         fn = jpeg_quantize_420 if self._sampling == "420" else jpeg_quantize
         return fn(band, self._lq, self._cq)
 
-    def submit(self, band: np.ndarray):
+    def submit(self, band):
         """Queue one band (rows a multiple of the MCU height, width padded
-        to whole MCUs); returns a handle for ``wait``."""
-        dev_band = self._upload(band)
+        to whole MCUs), a host array or a tensor on the encoder's device;
+        returns a handle for ``wait``."""
+        dev_band = self.on_device(band)
         self.counters.bands += 1
         if self._restart_rows:
             return self._submit_groups(dev_band)

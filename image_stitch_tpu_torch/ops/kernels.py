@@ -7,7 +7,20 @@
 - ``filter_select`` (csrc/filter.cu) replaces the Pallas kernel
   ``ops/pallas_kernels.py::_filter_kernel`` with the band's byte view;
 - ``composite_segments`` (csrc/composite.cu) replaces the compositor scan
-  ``ops/composite_device.py::_composite_run_trace``.
+  ``ops/composite_device.py::_composite_run_trace``;
+- ``idct_dequant`` (csrc/idct.cu) and ``ycc_rgba`` (csrc/ycc.cu) replace
+  the JPEG band decode program, ``ops/jpeg_idct_device.py::
+  decode_plane_trace`` and the upsampling and colour of
+  ``codecs/jpeg/device_decoder.py::_decode_band_trace``; their plain
+  versions are ``ops/jpeg_idct_device.decode_plane`` and
+  ``window_to_rgba``;
+- ``fdct_quant`` (csrc/fdct_quant.cu) replaces the quantize programs
+  ``ops/device.py::jpeg_quantize_trace`` and ``jpeg_quantize_420_trace``
+  (plain: ``ops/jpeg_dct.band_to_blocks_islow`` and ``_420``);
+- ``symbol_streams`` (csrc/symbols.cu) replaces
+  ``ops/jpeg_entropy_device.py::_symbol_streams_flat`` and
+  ``_symbol_streams`` (plain: ``ops/jpeg_entropy_device.
+  symbol_streams_plain``).
 
 The sources' head comments say what bounds each on the H100 and what the
 design does about it.
@@ -23,12 +36,15 @@ one to the other. ``<wrapper>.launches`` counts kernel launches.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Sequence
 
 import torch
 
 from .._build import load_cuda_kernels
+from .jpeg_dct import band_to_blocks_islow, band_to_blocks_islow_420
+from .jpeg_idct_device import decode_plane, window_to_rgba
 
 MASK32 = 0xFFFFFFFF
 # Largest words-per-block the kernel takes (csrc/pack_merge.cuh PACK_MAX_AW).
@@ -371,3 +387,208 @@ def composite_segments(metas: torch.Tensor, srcs: torch.Tensor, bg: Sequence[int
 
 
 composite_segments.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# JPEG decode: dequantize and IDCT, then upsampling and colour
+# --------------------------------------------------------------------------- #
+
+
+def idct_dequant(zz: torch.Tensor, q: torch.Tensor, bx: int) -> torch.Tensor:
+    """Dequantize and inverse-DCT whole block rows of one component.
+
+    ``zz`` (n, k) int16: each block's first k coefficients in zigzag order
+    (the rest zero), n a multiple of ``bx`` blocks a row; ``q`` (64,) int32
+    natural-order quantizers. Returns the (n / bx * 8, bx * 8) uint8
+    samples, range-limited as libjpeg does. Launches csrc/idct.cu for CUDA
+    tensors; ``jpeg_idct_device.decode_plane`` for CPU tensors."""
+    device = zz.device
+    _check(zz, "zz", torch.int16, 2, device)
+    _check(q, "q", torch.int32, 1, device)
+    n, k = zz.shape
+    if q.shape[0] != 64:
+        raise ValueError(f"q: expected 64 quantizers, got {q.shape[0]}")
+    if not 1 <= k <= 64:
+        raise ValueError(f"k = {k} outside [1, 64]")
+    if bx < 1 or n % bx:
+        raise ValueError(f"{n} blocks are not whole rows of {bx}")
+    if device.type == "cpu":
+        return decode_plane(zz, q, bx)
+    if device.type != "cuda":
+        raise ValueError(f"idct_dequant: unsupported device {device}")
+    out = torch.empty((n // bx * 8, bx * 8), dtype=torch.uint8, device=device)
+    if n == 0:
+        return out
+    lib = load_cuda_kernels()
+    _launch(lib.idct_dequant_launch, zz.data_ptr(), n, k, q.data_ptr(), bx, out.data_ptr(),
+            _stream(device))
+    idct_dequant.launches += 1
+    return out
+
+
+idct_dequant.launches = 0
+
+# Largest band the colour kernel takes (its rows are the grid's y axis).
+MAX_YCC_ROWS = 65535
+
+
+def ycc_rgba(planes: Sequence[torch.Tensor], geoms: Sequence[tuple[int, ...]],
+             out: torch.Tensor, x0: int, width: int) -> torch.Tensor:
+    """Crop, upsample and colour-convert one tile's band into ``out``.
+
+    ``planes``: one (gray) or three uint8 planes from ``idct_dequant``;
+    ``geoms``: per plane (h_exp, v_exp, r0, w0l, w1l, comp_w), its window
+    being rows [w0l, w1l) and columns [0, comp_w), and the band's first row
+    its upsampled row r0; ``out``: the (h, W, 4) uint8 band, whose columns
+    [x0, x0 + width) get the tile's RGBA, alpha 255. Returns ``out``.
+    Launches csrc/ycc.cu for CUDA tensors;
+    ``jpeg_idct_device.window_to_rgba`` for CPU tensors."""
+    device = out.device
+    _check(out, "out", torch.uint8, 3, device)
+    h, w_out, c = out.shape
+    if c != 4:
+        raise ValueError(f"out: expected (h, W, 4), got {tuple(out.shape)}")
+    if len(planes) not in (1, 3) or len(geoms) != len(planes):
+        raise ValueError(f"expected 1 or 3 planes with a geometry each, got "
+                         f"{len(planes)} and {len(geoms)}")
+    if not (0 <= x0 and width >= 0 and x0 + width <= w_out):
+        raise ValueError(f"columns [{x0}, {x0 + width}) outside the band's {w_out}")
+    rows = []
+    for plane, geom in zip(planes, geoms):
+        _check(plane, "plane", torch.uint8, 2, device)
+        h_exp, v_exp, r0, w0l, w1l, comp_w = (int(g) for g in geom)
+        if (h_exp < 1 or v_exp < 1 or not 0 <= w0l <= w1l <= plane.shape[0]
+                or not 0 < comp_w <= plane.shape[1] or r0 < 0
+                or (w1l - w0l) * v_exp < r0 + h or comp_w * h_exp < width):
+            raise ValueError(f"window {geom} does not cover {h} x {width} of a plane of "
+                             f"{tuple(plane.shape)}")
+        rows += [plane.shape[1], h_exp, v_exp, r0, w0l, w1l - w0l, comp_w]
+    if device.type == "cpu":
+        out[:, x0 : x0 + width] = window_to_rgba(planes, geoms, h, width)
+        return out
+    if device.type != "cuda":
+        raise ValueError(f"ycc_rgba: unsupported device {device}")
+    if h > MAX_YCC_ROWS:
+        raise ValueError(f"bands of {h} rows: the kernel takes at most {MAX_YCC_ROWS}")
+    if h == 0 or width == 0:
+        return out
+    lib = load_cuda_kernels()
+    ptrs = [p.data_ptr() for p in planes] * (3 if len(planes) == 1 else 1)
+    _launch(lib.ycc_rgba_launch, *ptrs[:3], (ctypes.c_int32 * len(rows))(*rows), len(planes),
+            out.data_ptr(), w_out * 4, x0, h, width, _stream(device))
+    ycc_rgba.launches += 1
+    return out
+
+
+ycc_rgba.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# JPEG encode: colour, forward DCT and quantization; symbol streams
+# --------------------------------------------------------------------------- #
+
+
+def fdct_quant(band: torch.Tensor, luma_q: torch.Tensor, chroma_q: torch.Tensor,
+               sampling: str = "444"):
+    """YCbCr, forward DCT and quantization of an (H, W, C >= 3) uint8 band,
+    read with its pixel stride C. 4:4:4: H and W multiples of 8; returns
+    (y, cb, cr), each (H/8 * W/8, 64) int16 natural-order blocks,
+    strip-major. 4:2:0: H and W multiples of 16; returns y (4n, 64) in MCU
+    order [TL, TR, BL, BR] and cb, cr (n, 64), n MCUs raster-major.
+    Launches csrc/fdct_quant.cu for CUDA tensors;
+    ``jpeg_dct.band_to_blocks_islow`` (or ``_420``) for CPU tensors."""
+    device = band.device
+    if band.dtype != torch.uint8 or band.ndim != 3 or band.shape[2] < 3:
+        raise TypeError(f"band: expected an (H, W, C >= 3) uint8 tensor, got "
+                        f"{tuple(band.shape)} {band.dtype}")
+    if not band.is_contiguous():
+        raise ValueError("band: must be contiguous")
+    _check(luma_q, "luma_q", torch.int32, 1, device)
+    _check(chroma_q, "chroma_q", torch.int32, 1, device)
+    if luma_q.shape[0] != 64 or chroma_q.shape[0] != 64:
+        raise ValueError("quantization tables must hold 64 values")
+    if sampling not in ("444", "420"):
+        raise ValueError(f"unsupported sampling {sampling!r}")
+    h, w, ch = band.shape
+    m = 16 if sampling == "420" else 8
+    if h % m or w % m:
+        raise ValueError(f"band {h} x {w}: rows and columns must be multiples of {m}")
+    if device.type == "cpu":
+        fn = band_to_blocks_islow_420 if sampling == "420" else band_to_blocks_islow
+        return fn(band, luma_q, chroma_q)
+    if device.type != "cuda":
+        raise ValueError(f"fdct_quant: unsupported device {device}")
+    n = (h // 8) * (w // 8)
+    n_c = n // 4 if sampling == "420" else n
+    blocks = [torch.empty((cnt, 64), dtype=torch.int16, device=device) for cnt in (n, n_c, n_c)]
+    if n == 0:
+        return tuple(blocks)
+    lib = load_cuda_kernels()
+    _launch(lib.fdct_quant_launch, band.data_ptr(), h, w, ch, luma_q.data_ptr(),
+            chroma_q.data_ptr(), int(sampling == "420"), *(b.data_ptr() for b in blocks),
+            _stream(device))
+    fdct_quant.launches += 1
+    return tuple(blocks)
+
+
+fdct_quant.launches = 0
+
+# Words of the packed symbol table (csrc/symbols.cuh SYM_LUT_WORDS).
+SYMBOL_LUT_WORDS = 1096
+SYMBOL_SLOTS = 65
+
+
+def symbol_streams(yb: torch.Tensor, cbb: torch.Tensor, crb: torch.Tensor, luts: dict,
+                   n_groups: int = 1, sampling: str = "444",
+                   prev_dc: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Huffman (code, length) slots of quantized blocks in MCU order.
+
+    ``yb``, ``cbb``, ``crb``: (n, 64) int16 natural-order blocks (4n luma
+    blocks for 4:2:0); ``luts``: ``jpeg_entropy_device.build_entropy_luts``;
+    the DC chains restart from 0 at each of ``n_groups`` equal restart
+    groups, or, given ``prev_dc`` ((3,) int32, one group), continue from it.
+    Returns (codes, lens), each (B, 65) int32: DC, 63 AC positions, EOB.
+    Launches csrc/symbols.cu for CUDA tensors;
+    ``jpeg_entropy_device.symbol_streams_plain`` for CPU tensors."""
+    device = yb.device
+    for name, t in (("yb", yb), ("cbb", cbb), ("crb", crb)):
+        _check(t, name, torch.int16, 2, device)
+        if t.shape[1] != 64:
+            raise ValueError(f"{name}: expected (n, 64), got {tuple(t.shape)}")
+    n = cbb.shape[0]
+    luma = 4 if sampling == "420" else 1
+    if sampling not in ("444", "420"):
+        raise ValueError(f"unsupported sampling {sampling!r}")
+    if yb.shape[0] != luma * n or crb.shape[0] != n:
+        raise ValueError(f"block counts {yb.shape[0]}, {n}, {crb.shape[0]} do not make "
+                         f"{sampling} MCUs")
+    if n_groups < 1 or n % n_groups:
+        raise ValueError(f"{n} MCUs do not make {n_groups} equal restart groups")
+    if prev_dc is not None:
+        _check(prev_dc, "prev_dc", torch.int32, 1, device)
+        if prev_dc.shape[0] != 3 or n_groups != 1:
+            raise ValueError("prev_dc: three predictors, for one carried group")
+    if device.type == "cpu":
+        from .jpeg_entropy_device import symbol_streams_plain
+
+        return symbol_streams_plain(yb, cbb, crb, luts, n_groups, sampling, prev_dc)
+    if device.type != "cuda":
+        raise ValueError(f"symbol_streams: unsupported device {device}")
+    packed = luts["packed"]
+    _check(packed, "luts['packed']", torch.int32, 1, device)
+    if packed.shape[0] != SYMBOL_LUT_WORDS:
+        raise ValueError(f"luts['packed']: expected {SYMBOL_LUT_WORDS} words")
+    n_blocks = n * (luma + 2)
+    codes = torch.empty((n_blocks, SYMBOL_SLOTS), dtype=torch.int32, device=device)
+    lens = torch.empty((n_blocks, SYMBOL_SLOTS), dtype=torch.int32, device=device)
+    if n == 0:
+        return codes, lens
+    lib = load_cuda_kernels()
+    _launch(lib.symbol_streams_launch, yb.data_ptr(), cbb.data_ptr(), crb.data_ptr(), n,
+            int(sampling == "420"), n_groups, 0 if prev_dc is None else prev_dc.data_ptr(),
+            packed.data_ptr(), codes.data_ptr(), lens.data_ptr(), _stream(device))
+    symbol_streams.launches += 1
+    return codes, lens
+
+
+symbol_streams.launches = 0

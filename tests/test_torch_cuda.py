@@ -221,8 +221,8 @@ def test_grid_and_positioned_png_match_host(cuda):
 
 
 def test_positioned_jpeg_and_stream_bands_match_host(cuda):
-    """Bands blended on the card are read back for the JPEG encoder and for
-    stream_bands."""
+    """Bands blended on the card go to the JPEG encoder as tensors on the
+    card, and are read back for stream_bands."""
     from image_stitch_tpu.core import CoreStreamingConcatenator
 
     rng = np.random.default_rng(6)
@@ -234,9 +234,11 @@ def test_positioned_jpeg_and_stream_bands_match_host(cuda):
     opts = {"inputs": [PositionedImage(0, 0, base), PositionedImage(20, 10, png_from_array(alpha))],
             "bandHeight": 32, "outputFormat": "jpeg"}
     counters = image_stitch_tpu_torch.EncodeCounters()
+    launches = K.fdct_quant.launches
     got = image_stitch_tpu_torch.concat_to_buffer(opts, device=cuda, counters=counters)
     assert got == host(opts)
     assert counters.composite_bands_on_device > 0
+    assert K.fdct_quant.launches > launches
     bands = list(image_stitch_tpu_torch.TorchStreamingConcatenator(
         opts, device=cuda).stream_bands())
     jax_inputs = [image_stitch_tpu.types.PositionedImage(i.x, i.y, i.source)
@@ -247,3 +249,129 @@ def test_positioned_jpeg_and_stream_bands_match_host(cuda):
     for a, b in zip(bands, ref):
         assert type(a) is np.ndarray
         np.testing.assert_array_equal(a, b)
+
+
+# ----------------------------------------------------------------- JPEG --- #
+
+
+def jpeg_bytes(arr: np.ndarray, sampling: str, quality: int = 88) -> bytes:
+    """(H, W, 3) uint8 -> a JPEG from the port's own encoder on the CPU (a
+    GPU machine may have no PIL)."""
+    rgba = np.concatenate([arr, np.full(arr.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+    return image_stitch_tpu_torch.concat_to_buffer(
+        {"inputs": [png_from_array(rgba)], "layout": {"columns": 1}, "outputFormat": "jpeg",
+         "jpegQuality": quality, "jpegSampling": sampling}, device="cpu")
+
+
+@pytest.mark.parametrize("k,quality", [(8, 50), (24, 100), (64, 50), (64, 100)])
+def test_idct_dequant_matches_plain(cuda, k, quality):
+    """Coefficients over all of int16 (the range limit's wrap), a row of
+    DC-only blocks, 1003 blocks a row."""
+    from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
+
+    rng = np.random.default_rng(k + quality)
+    bx = 1003
+    zz = rng.integers(-(1 << 15), 1 << 15, (3 * bx, k)).astype(np.int16)
+    zz[:bx, 1:] = 0
+    q = torch.from_numpy(quality_scaled_tables(quality)[0].astype(np.int32)).to(cuda)
+    zz = torch.from_numpy(zz).to(cuda)
+    launches = K.idct_dequant.launches
+    got = K.idct_dequant(zz, q, bx)
+    want = K.decode_plane(zz, q, bx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert K.idct_dequant.launches == launches + 1
+
+
+@pytest.mark.parametrize("sampling", ["444", "420"])
+@pytest.mark.parametrize("size,band", [((45, 67), (0, 16)), ((45, 67), (16, 45)),
+                                       ((9, 6), (3, 9)), ((9, 4), (1, 8))])
+def test_device_decoder_matches_cpu(cuda, sampling, size, band):
+    """decode_band on the card (idct_dequant per component, then ycc_rgba
+    into a wider band at an x offset) against the CPU decode: bands at the
+    image's edges and inside it, comp_w of 2 and 3."""
+    from image_stitch_tpu_torch.codecs.jpeg.device_decoder import DeviceJpegDecoder
+
+    rng = np.random.default_rng(size[1])
+    arr = rng.integers(0, 256, size + (3,), dtype=np.uint8)
+    data = jpeg_bytes(arr, sampling)
+    dec = DeviceJpegDecoder(data, cuda)
+    y0, y1 = band
+    out = torch.zeros((y1 - y0, size[1] + 9, 4), dtype=torch.uint8, device=cuda)
+    counts = K.idct_dequant.launches, K.ycc_rgba.launches
+    dec.decode_band(y0, y1, return_device=True, out=out, x0=4)
+    want = DeviceJpegDecoder(data).decode_band(y0, y1)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(out[:, 4 : 4 + size[1]].cpu().numpy(), want)
+    assert (K.idct_dequant.launches, K.ycc_rgba.launches) == (counts[0] + 3, counts[1] + 1)
+
+
+@pytest.mark.parametrize("sampling,channels", [("444", 3), ("444", 4), ("420", 4)])
+def test_fdct_quant_matches_plain(cuda, sampling, channels):
+    from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
+    from image_stitch_tpu_torch.ops.jpeg_dct import band_to_blocks_islow, band_to_blocks_islow_420
+
+    rng = np.random.default_rng(channels)
+    band = rng.integers(0, 256, (64, 1040, channels), dtype=np.uint8)
+    band[:16, :, :3] = (0, 0, 255)  # Cb = 256
+    band = torch.from_numpy(band).to(cuda)
+    lq, cq = (torch.from_numpy(t.astype(np.int32)).to(cuda) for t in quality_scaled_tables(85))
+    plain = band_to_blocks_islow_420 if sampling == "420" else band_to_blocks_islow
+    launches = K.fdct_quant.launches
+    got = K.fdct_quant(band, lq, cq, sampling)
+    want = plain(band, lq, cq)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+    assert K.fdct_quant.launches == launches + 1
+
+
+@pytest.mark.parametrize("sampling", ["444", "420"])
+@pytest.mark.parametrize("n_groups,carried", [(1, False), (8, False), (1, True)])
+def test_symbol_streams_matches_plain(cuda, sampling, n_groups, carried):
+    from image_stitch_tpu_torch.codecs.jpeg import tables as T
+    from image_stitch_tpu_torch.ops import jpeg_entropy_device as E
+
+    rng = np.random.default_rng(n_groups)
+    n = 1024
+    luma = 4 if sampling == "420" else 1
+
+    def blocks(cnt):
+        zz = rng.integers(-60, 61, (cnt, 64)) * (rng.random((cnt, 64)) < 0.2)
+        zz[::5, 1:] = 0
+        zz[1::7, 2:34] = 0  # a run of 32 zeros
+        zz[2::7, 2:19] = 0  # 17
+        zz[3::7, 63] = 9    # nonzero at 63
+        nat = np.zeros_like(zz)
+        nat[:, T.ZIGZAG] = zz
+        return torch.from_numpy(nat.astype(np.int16)).to(cuda)
+
+    y, cb, cr = blocks(luma * n), blocks(n), blocks(n)
+    tables = [T.build_huffman_codes(bits, vals) for bits, vals in (
+        (T.STD_DC_LUMA_BITS, T.STD_DC_LUMA_VALS), (T.STD_AC_LUMA_BITS, T.STD_AC_LUMA_VALS),
+        (T.STD_DC_CHROMA_BITS, T.STD_DC_CHROMA_VALS), (T.STD_AC_CHROMA_BITS, T.STD_AC_CHROMA_VALS))]
+    luts = E.build_entropy_luts(*tables, cuda)
+    prev = torch.tensor([100, -7, 3], dtype=torch.int32, device=cuda) if carried else None
+    launches = K.symbol_streams.launches
+    got = K.symbol_streams(y, cb, cr, luts, n_groups, sampling, prev)
+    want = E.symbol_streams_plain(y, cb, cr, luts, n_groups, sampling, prev)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert K.symbol_streams.launches == launches + 1
+
+
+@pytest.mark.parametrize("ri,sampling", [(1, "420"), (0, "444")])
+def test_jpeg_tiles_grid_matches_host(cuda, ri, sampling):
+    """A grid of JPEG tiles to JPEG: every band decoded on the card and
+    encoded there, bytes equal to the host tier's."""
+    rng = np.random.default_rng(ri)
+    tiles = [jpeg_bytes(rng.integers(0, 256, (64, 80, 3), dtype=np.uint8), sampling)
+             for _ in range(4)]
+    opts = {"inputs": tiles, "layout": {"columns": 2}, "outputFormat": "jpeg",
+            "jpegRestartIntervalRows": ri, "bandHeight": 32}
+    counts = [w.launches for w in (K.idct_dequant, K.ycc_rgba, K.fdct_quant, K.symbol_streams)]
+    got = image_stitch_tpu_torch.concat_to_buffer(opts, device=cuda)
+    assert got == host(opts)
+    after = [w.launches for w in (K.idct_dequant, K.ycc_rgba, K.fdct_quant, K.symbol_streams)]
+    # 2 tile rows of 2 bands, 2 tiles a band, 3 components a tile.
+    assert after[0] - counts[0] == 24 and after[1] - counts[1] == 8
+    assert after[2] > counts[2] and after[3] > counts[3]

@@ -1,0 +1,396 @@
+"""JPEG tiles decoded by the port's device tier, against the JAX package.
+
+- ``DeviceJpegDecoder.decode_band`` on the CPU (the plain versions of
+  ``idct_dequant`` and ``ycc_rgba``) against the JAX package's
+  ``DeviceJpegDecoder`` and the owned host decoder: 4:4:4, 4:2:2, 4:2:0,
+  gray, odd sizes, any band split, progressive, K truncation.
+- ``concat_to_buffer(..., device="cpu")`` on grids of JPEG tiles to JPEG
+  against ``image_stitch_tpu.concat_to_buffer`` with the numpy and jax
+  backends: the fast path (counted), bands crossing tile boundaries, mixed
+  PNG and JPEG, duplicate inputs, the off switch, restart groups,
+  background holes.
+- The encoder's tensor bands: alone, alternating with host bands, and on
+  the wrong device (which raises).
+- Streams past the device tier's bounds: DC accumulation to |coef| >= 2^15
+  is decoded on the host tier, and |coef * q| past the JAX package's
+  M_SAFE (but |coef| < 2^15) on the port's device tier; both give the JAX
+  package's bytes.
+
+Everything is integer: bytes must be equal.
+"""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import image_stitch_tpu
+import image_stitch_tpu_torch
+from image_stitch_tpu.codecs.jpeg.device_decoder import DeviceJpegDecoder as JaxDecoder
+from image_stitch_tpu.codecs.jpeg.owned_decoder import decode_baseline_jpeg
+from image_stitch_tpu_torch.codecs.jpeg import tables as T
+from image_stitch_tpu_torch.codecs.jpeg.device_decoder import DeviceJpegDecoder
+from image_stitch_tpu_torch.codecs.jpeg.encoder import TorchStreamingJpegEncoder
+from image_stitch_tpu_torch.codecs.jpeg.huffman import BitPacker, HuffmanEncoder
+
+torch.set_num_threads(1)
+
+
+def photo(h: int, w: int, seed: int = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    arr = np.empty((h, w, 3), np.uint8)
+    arr[..., 0] = np.linspace(0, 255, w, dtype=np.float32)[None, :].astype(np.uint8)
+    arr[..., 1] = np.linspace(0, 255, h, dtype=np.float32)[:, None].astype(np.uint8)
+    arr[..., 2] = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    return arr
+
+
+def jpeg(arr: np.ndarray, quality: int = 85, sampling: str = "420", **kw) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, "JPEG", quality=quality,
+                              subsampling={"444": 0, "422": 1, "420": 2}[sampling], **kw)
+    return buf.getvalue()
+
+
+def owned_rgba(data: bytes) -> np.ndarray:
+    rgb = decode_baseline_jpeg(data)
+    return np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+
+
+# --------------------------------------------------------------------------- #
+# decode_band
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("sampling", ["444", "422", "420"])
+@pytest.mark.parametrize("size", [(64, 64), (45, 67), (17, 130)])
+def test_decode_band_equals_jax_and_owned(sampling, size):
+    data = jpeg(photo(*size, seed=sum(size)), 85, sampling)
+    dec = DeviceJpegDecoder(data)
+    assert dec.safe
+    want = owned_rgba(data)
+    np.testing.assert_array_equal(dec.decode_full(), want)
+    np.testing.assert_array_equal(JaxDecoder(data).decode_band(0, size[0]), want)
+    band = dec.decode_band(0, size[0], return_device=True)
+    assert isinstance(band, torch.Tensor) and band.device.type == "cpu"
+    np.testing.assert_array_equal(band.numpy(), want)
+
+
+@pytest.mark.parametrize("band_h", [1, 3, 8, 16, 40])
+def test_band_split_invariance(band_h):
+    """Splits mid-MCU, where h2v2's vertical filter needs the row across
+    the band edge, give the whole-image decode."""
+    data = jpeg(photo(45, 67, seed=9), 85, "420")
+    dec = DeviceJpegDecoder(data)
+    parts = [dec.decode_band(y0, min(dec.height, y0 + band_h))
+             for y0 in range(0, dec.height, band_h)]
+    np.testing.assert_array_equal(np.concatenate(parts, axis=0), owned_rgba(data))
+
+
+def test_band_into_a_wider_tensor_at_an_offset():
+    data = jpeg(photo(40, 56, seed=2), 85, "420")
+    dec = DeviceJpegDecoder(data)
+    out = torch.zeros((16, 80, 4), dtype=torch.uint8)
+    assert dec.decode_band(8, 24, return_device=True, out=out, x0=13) is out
+    np.testing.assert_array_equal(out[:, 13:69].numpy(), owned_rgba(data)[8:24])
+    assert not out[:, :13].any() and not out[:, 69:].any()
+
+
+def test_gray_and_quality_extremes():
+    g = np.random.default_rng(11).integers(0, 256, (33, 29), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(g, mode="L").save(buf, "JPEG", quality=92)
+    data = buf.getvalue()
+    dec = DeviceJpegDecoder(data)
+    assert dec.safe and len(dec._zz_blocks) == 1
+    np.testing.assert_array_equal(dec.decode_full(7), owned_rgba(data))
+    np.testing.assert_array_equal(dec.decode_full(7), JaxDecoder(data).decode_full(7))
+    for q in (30, 97):
+        data = jpeg(photo(24, 40, seed=q), q, "444")
+        np.testing.assert_array_equal(DeviceJpegDecoder(data).decode_full(16), owned_rgba(data))
+
+
+def test_progressive_stream():
+    data = jpeg(photo(40, 56, seed=3), 85, "420", progressive=True)
+    dec = DeviceJpegDecoder(data)
+    np.testing.assert_array_equal(dec.decode_full(16), owned_rgba(data))
+    np.testing.assert_array_equal(dec.decode_full(16), JaxDecoder(data).decode_full(16))
+
+
+def test_zigzag_prefix_truncation():
+    """Smooth content uploads fewer than 64 coefficients a block, the same
+    K as the JAX package's, and still decodes exactly."""
+    arr = np.empty((64, 64, 3), np.uint8)
+    arr[:] = np.linspace(40, 200, 64, dtype=np.float32)[None, :, None].astype(np.uint8)
+    data = jpeg(arr, 85, "420")
+    dec = DeviceJpegDecoder(data)
+    assert max(dec._k) < 64 and dec._k == JaxDecoder(data)._k
+    assert all(z.shape[1] == k for z, k in zip(dec._zz_blocks, dec._k))
+    np.testing.assert_array_equal(dec.decode_full(), owned_rgba(data))
+
+
+# --------------------------------------------------------------------------- #
+# The grid path
+# --------------------------------------------------------------------------- #
+
+
+def jpeg_tile(seed: int, w: int, h: int, sampling: str = "420") -> bytes:
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0, 255, w, dtype=np.float32)
+    arr = np.empty((h, w, 3), np.uint8)
+    arr[..., 0] = x[None, :].astype(np.uint8)
+    arr[..., 1] = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    arr[..., 2] = x[None, ::-1].astype(np.uint8)
+    return jpeg(arr, 88, sampling)
+
+
+def png_tile(seed: int, w: int, h: int) -> bytes:
+    arr = np.random.default_rng(seed).integers(0, 256, (h, w, 4), dtype=np.uint8)
+    arr[..., 3] = 255
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, "PNG")
+    return buf.getvalue()
+
+
+def options(inputs, **kw) -> dict:
+    return {"inputs": inputs, "layout": {"columns": kw.pop("columns", 2)},
+            "outputFormat": "jpeg", "jpegQuality": 85, "bandHeight": kw.pop("band_height", 32),
+            **kw}
+
+
+def port(opts) -> bytes:
+    return image_stitch_tpu_torch.concat_to_buffer(opts, device="cpu")
+
+
+def jax_package(opts, backend: str) -> bytes:
+    return image_stitch_tpu.concat_to_buffer({**opts, "backend": backend})
+
+
+@pytest.fixture
+def decodes(monkeypatch):
+    """Calls of the port's decode_band: (y0, y1, into a band tensor)."""
+    calls = []
+    real = DeviceJpegDecoder.decode_band
+
+    def counted(self, y0, y1, return_device=False, out=None, x0=0):
+        calls.append((y0, y1, out is not None))
+        return real(self, y0, y1, return_device, out, x0)
+
+    monkeypatch.setattr(DeviceJpegDecoder, "decode_band", counted)
+    return calls
+
+
+@pytest.fixture
+def host_decodes(monkeypatch):
+    """Whole-tile decodes on the host tier."""
+    from image_stitch_tpu_torch.codecs.jpeg import decoder
+
+    calls = []
+    real = decoder.decode_jpeg_to_rgba
+
+    def counted(data, options=None):
+        calls.append(len(data))
+        return real(data, options)
+
+    monkeypatch.setattr(decoder, "decode_jpeg_to_rgba", counted)
+    return calls
+
+
+@pytest.mark.parametrize("ri", [0, 1])
+def test_grid_fast_path_matches_jax(decodes, host_decodes, ri):
+    """Every band tiled by JPEG tiles is decoded into one band tensor on the
+    device and encoded there; no tile is decoded on the host."""
+    opts = options([jpeg_tile(s, 64, 64) for s in range(4)], jpegRestartIntervalRows=ri)
+    got = port(opts)
+    assert got == jax_package(opts, "numpy") == jax_package(opts, "jax")
+    assert len(decodes) == 4 * 2 and all(into for _y0, _y1, into in decodes)
+    assert not host_decodes
+
+
+def test_band_crossing_tile_boundary(decodes, host_decodes):
+    """Tiles 56 rows high in 16-row bands: bands that cross a tile boundary
+    are assembled on the host from decode_band's host arrays, the others
+    on the device."""
+    opts = options([jpeg_tile(s, 48, 56, "444") for s in range(4)], band_height=16)
+    assert port(opts) == jax_package(opts, "numpy")
+    kinds = {into for _y0, _y1, into in decodes}
+    assert kinds == {True, False} and not host_decodes
+
+
+def test_mixed_png_jpeg_grid(decodes):
+    inputs = [jpeg_tile(0, 64, 64), png_tile(1, 64, 64), jpeg_tile(2, 64, 64), png_tile(3, 64, 64)]
+    opts = options(inputs)
+    assert port(opts) == jax_package(opts, "numpy")
+    assert decodes and not any(into for _y0, _y1, into in decodes)
+
+
+def test_duplicate_inputs(decodes):
+    tile = jpeg_tile(7, 64, 64)
+    opts = options([tile, tile, tile, tile])
+    assert port(opts) == jax_package(opts, "numpy")
+    assert decodes
+
+
+def test_off_switch(decodes, monkeypatch):
+    monkeypatch.setenv("STITCH_TPU_DEVICE_DECODE", "0")
+    opts = options([jpeg_tile(s, 64, 64) for s in range(2)])
+    assert port(opts) == jax_package(opts, "numpy")
+    assert not decodes
+
+
+def test_background_holes(decodes):
+    """A 2 x 2 grid with one cell empty: the second tile row's bands hold
+    background, so they are assembled on the host, their tile still
+    decoded by the device tier; the first row's bands stay on the
+    device."""
+    opts = options([jpeg_tile(s, 40, 40) for s in range(3)])
+    assert port(opts) == jax_package(opts, "numpy")
+    assert {into for _y0, _y1, into in decodes} == {True, False}
+
+
+def test_420_output_and_png_output_unaffected(decodes):
+    opts = options([jpeg_tile(s, 64, 48) for s in range(4)], jpegSampling="420",
+                   jpegRestartIntervalRows=1)
+    assert port(opts) == jax_package(opts, "numpy")
+    assert decodes
+    decodes.clear()
+    png_opts = {**opts, "outputFormat": "png"}
+    assert port(png_opts) == jax_package(png_opts, "numpy")
+    assert not decodes
+
+
+def test_stream_bands_reads_device_bands_back():
+    opts = options([jpeg_tile(s, 64, 64) for s in range(4)])
+    bands = list(image_stitch_tpu_torch.TorchStreamingConcatenator(opts, device="cpu")
+                 .stream_bands())
+    assert all(type(b) is np.ndarray for b in bands)
+    from image_stitch_tpu.core import CoreStreamingConcatenator
+
+    ref = list(CoreStreamingConcatenator({**opts, "backend": "numpy"}).stream_bands())
+    for a, b in zip(bands, ref, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# The encoder's tensor bands
+# --------------------------------------------------------------------------- #
+
+
+def encode(bands, **kw) -> bytes:
+    enc = TorchStreamingJpegEncoder(width=kw.pop("width", 45), height=kw.pop("height"),
+                                    device="cpu", **kw)
+    out = b"".join(enc.header())
+    for band in bands:
+        out += b"".join(enc.encode_band(band))
+    return out + b"".join(enc.finish())
+
+
+@pytest.mark.parametrize("sampling,ri", [("444", 0), ("444", 2), ("420", 1)])
+def test_encoder_tensor_bands_equal_host_bands(sampling, ri):
+    """Bands of 13 rows (pending rows held back across bands, a partial
+    final strip) and an odd width (edge padding): tensors alone, and
+    tensors alternating with host arrays, give the host bands' bytes."""
+    rng = np.random.default_rng(3)
+    img = np.concatenate([photo(61, 45, seed=4), np.full((61, 45, 1), 255, np.uint8)], -1)
+    img[..., :3] = np.clip(img[..., :3] + rng.integers(-3, 4, img[..., :3].shape), 0, 255)
+    host = [img[y : y + 13] for y in range(0, 61, 13)]
+    kw = {"height": 61, "sampling": sampling, "restart_interval_rows": ri}
+    want = encode(host, **kw)
+    assert encode([torch.from_numpy(b.copy()) for b in host], **kw) == want
+    mixed = [torch.from_numpy(b.copy()) if i % 2 else b for i, b in enumerate(host)]
+    assert encode(mixed, **kw) == want
+    mixed = [b if i % 2 else torch.from_numpy(b.copy()) for i, b in enumerate(host)]
+    assert encode(mixed, **kw) == want
+
+
+def test_encoder_rejects_a_tensor_on_another_device():
+    enc = TorchStreamingJpegEncoder(width=16, height=16, device="cpu")
+    with pytest.raises(ValueError):
+        b"".join(enc.encode_band(torch.zeros((16, 16, 4), dtype=torch.uint8, device="meta")))
+
+
+# --------------------------------------------------------------------------- #
+# Streams past the device tier's bounds
+# --------------------------------------------------------------------------- #
+
+
+def gray_jpeg(dc: list[int], q: np.ndarray, rows: int = 1) -> bytes:
+    """A baseline gray JPEG of 8 * rows x 8 * len(dc) // rows px whose
+    blocks have the given DC values (natural-order quantized), some AC
+    terms, and the natural-order table q: DC differences of up to 2047 a
+    block accumulate to any value."""
+    n = len(dc)
+    blocks = np.zeros((n, 64), np.int64)
+    blocks[:, 0] = dc
+    blocks[:, 1] = np.arange(n) % 7 - 3
+    blocks[:, 9] = 5
+    dc_codes = T.build_huffman_codes(T.STD_DC_LUMA_BITS, T.STD_DC_LUMA_VALS)
+    ac_codes = T.build_huffman_codes(T.STD_AC_LUMA_BITS, T.STD_AC_LUMA_VALS)
+    codes, lens, _ = HuffmanEncoder(dc_codes, ac_codes).encode_component_blocks(blocks, 0)
+    packer = BitPacker()
+    scan = packer.pack(np.concatenate(codes), np.concatenate(lens)) + packer.flush()
+    h, w = 8 * rows, 8 * n // rows
+    out = bytearray(b"\xff\xd8")
+    out += b"\xff\xdb" + (67).to_bytes(2, "big") + bytes([0])
+    out += bytes(int(v) for v in q[T.ZIGZAG])
+    out += b"\xff\xc0" + (11).to_bytes(2, "big") + bytes([8]) + h.to_bytes(2, "big")
+    out += w.to_bytes(2, "big") + bytes([1, 1, 0x11, 0])
+    for tc_th, bits, vals in ((0x00, T.STD_DC_LUMA_BITS, T.STD_DC_LUMA_VALS),
+                              (0x10, T.STD_AC_LUMA_BITS, T.STD_AC_LUMA_VALS)):
+        payload = bytes([tc_th]) + bytes(bits[1:17]) + bytes(vals)
+        out += b"\xff\xc4" + (2 + len(payload)).to_bytes(2, "big") + payload
+    out += b"\xff\xda" + (8).to_bytes(2, "big") + bytes([1, 1, 0x00, 0, 63, 0])
+    return bytes(out + scan + b"\xff\xd9")
+
+
+def test_dc_accumulation_past_int16_takes_the_host_tier(decodes):
+    """DC climbs by 2047 a block to 34,799: not int16, so ``safe`` is False
+    in both packages and the tile is decoded on the host tier; the bytes
+    equal the JAX package's."""
+    dc = [min(i, 17) * 2047 for i in range(24)]
+    data = gray_jpeg(dc, np.ones(64, np.int64))
+    assert max(dc) >= 1 << 15
+    assert not DeviceJpegDecoder(data).safe and not JaxDecoder(data).safe
+    opts = options([data, data], band_height=8)
+    assert port(opts) == jax_package(opts, "numpy")
+    assert not decodes
+
+
+def test_past_m_safe_decodes_on_the_device_tier(decodes):
+    """|coef * q| = 12,000 * 255 > M_SAFE, |coef| < 2^15: the JAX package
+    decodes it on its host tier, the port on its device tier; with the
+    owned host decoder on both sides the bytes are equal, and the port's
+    device decode equals the owned decoder."""
+    from image_stitch_tpu.ops.jpeg_idct_device import M_SAFE
+
+    dc = [min(i, 6) * 2000 for i in range(16)]
+    q = np.full(64, 255, np.int64)
+    data = gray_jpeg(dc, q, rows=2)
+    assert max(dc) * 255 > M_SAFE and max(dc) < 1 << 15
+    assert DeviceJpegDecoder(data).safe and not JaxDecoder(data).safe
+    np.testing.assert_array_equal(DeviceJpegDecoder(data).decode_full(), owned_rgba(data))
+    decodes.clear()
+    opts = options([data, data], band_height=8, decoderOptions={"force_owned": True})
+    assert port(opts) == jax_package(opts, "numpy")
+    assert decodes and all(into for _y0, _y1, into in decodes)
+
+
+def test_marker_scan_matches_the_jax_package():
+    """The port's marker scan (bytes.find) against the JAX package's byte
+    loop: random entropy-like bytes with stuffed 0xFF00, RST markers, fill
+    bytes and real markers, from every start."""
+    from image_stitch_tpu.codecs.jpeg.owned_decoder import _next_marker_pos as ref
+    from image_stitch_tpu_torch.codecs.jpeg.owned_decoder import _next_marker_pos
+
+    rng = np.random.default_rng(12)
+    for trial in range(40):
+        data = bytearray(rng.integers(0, 255, 300, dtype=np.uint8).tobytes())
+        for pos in rng.integers(0, 299, 12):
+            data[pos : pos + 2] = bytes([0xFF, int(rng.choice([0x00, 0xD3, 0xD9, 0xFF, 0xC4]))])
+        if trial % 3 == 0:
+            data[-1] = 0xFF
+        data = bytes(data)
+        for start in range(0, len(data), 7):
+            assert _next_marker_pos(data, start) == ref(data, start)

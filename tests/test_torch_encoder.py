@@ -143,7 +143,20 @@ def test_carried_capacity_overflow_codes_on_host():
 
 
 def test_submit_rejects_device_arrays():
+    """``submit`` takes a tensor on the encoder's device as it lies, with
+    the host array's bytes; a tensor on another device raises (no silent
+    copy), and so does one that is not an (H, W, C >= 3) uint8 band."""
+    rng = np.random.default_rng(7)
+    band = photo_band(rng, 16, 32)
     lq, cq = quality_scaled_tables(85)
-    enc = TorchJpegEncoder(lq, cq, *TABLES, device="cpu")
+    outs = []
+    for b in (band, torch.from_numpy(band.copy())):
+        enc = TorchJpegEncoder(lq, cq, *TABLES, device="cpu")
+        outs.append(enc.wait(enc.submit(b)) + enc.flush())
+    assert outs[0] == outs[1]
+    with pytest.raises(ValueError):
+        enc.submit(torch.zeros((8, 8, 4), dtype=torch.uint8, device="meta"))
     with pytest.raises(TypeError):
-        enc.submit(torch.zeros((8, 8, 4), dtype=torch.uint8))
+        enc.submit(torch.zeros((8, 8, 2), dtype=torch.uint8))
+    with pytest.raises(TypeError):
+        enc.submit(torch.zeros((8, 8, 4), dtype=torch.int32))

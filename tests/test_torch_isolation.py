@@ -4,8 +4,10 @@
 parsed with ``ast``, has no ``import image_stitch_tpu...`` and no ``from
 image_stitch_tpu... import``; relative imports stay inside the port.
 (b) A fresh process imports every module of the port and runs
-``concat_to_buffer(..., device="cpu")`` to JPEG and to PNG on a 2 x 2 grid;
-afterwards no module of ``image_stitch_tpu`` and no ``jax`` is loaded.
+``concat_to_buffer(..., device="cpu")`` to JPEG and to PNG on a 2 x 2 grid,
+and a 2 x 2 grid of JPEG tiles (made by the port's encoder) to JPEG
+through the device-decode path; afterwards no module of
+``image_stitch_tpu`` and no ``jax`` is loaded.
 """
 
 import ast
@@ -74,6 +76,15 @@ jpeg = port.concat_to_buffer({"inputs": tiles, "layout": {"columns": 2},
 assert jpeg[:2] == b"\\xff\\xd8" and jpeg[-2:] == b"\\xff\\xd9"
 out = port.concat_to_buffer({"inputs": tiles, "layout": {"columns": 2}}, device="cpu")
 assert out[:8] == b"\\x89PNG\\r\\n\\x1a\\n" and out[-8:-4] == b"IEND"
+from image_stitch_tpu_torch.codecs.jpeg.device_decoder import DeviceJpegDecoder
+calls = []
+real = DeviceJpegDecoder.decode_band
+DeviceJpegDecoder.decode_band = lambda self, *a, **k: calls.append(a) or real(self, *a, **k)
+jpegs = [port.concat_to_buffer({"inputs": [t], "layout": {"columns": 1},
+                                "outputFormat": "jpeg"}, device="cpu") for t in tiles]
+out = port.concat_to_buffer({"inputs": jpegs, "layout": {"columns": 2},
+                             "outputFormat": "jpeg"}, device="cpu")
+assert out[:2] == b"\\xff\\xd8" and out[-2:] == b"\\xff\\xd9" and calls
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("image_stitch_tpu", "jax")))
 """
