@@ -31,10 +31,18 @@ path. Phases, each printing its lines before the last:
    and 64 and all-zero AC columns, ycc_rgba on 4:4:4, h2v1, h2v2 and gray
    windows with comp_w of 2 and 3 at band and image edges into a wider
    band at an x offset, fdct_quant on a 256 x 8192 band of random bytes, a
-   saturated-blue band (Cb = 256) and a 4:2:0 band, symbol_streams on
-   blocks with runs of 16, 17 and 32 zeros and nonzeros at position 63 in
-   restart groups of 1 and 4 MCU rows and carried from a nonzero prev_dc.
-   Outputs must be equal;
+   saturated-blue band (Cb = 256) and a 4:2:0 band, and at widths 8, 16,
+   24, 264 and 8192 with pixel strides of 3, 4 and 5 bytes at aligned and
+   unaligned addresses (every load variant of ``FDCT_VARIANTS`` must run)
+   over pure blue, 0 and 255; symbol_streams (codes, lengths, block bit
+   counts, last DCs) on blocks with runs of 16, 17 and 32 zeros and
+   nonzeros at position 63 in restart groups of 1 and 4 MCU rows and
+   carried from a nonzero prev_dc, and on a block count off the CTA's 8
+   warps with all-zero blocks, 63 nonzeros, runs of 15, 16, 17, 32 and 48
+   zeros, +-32767 and over-budget blocks, as 1, 4, 12 and 32 groups and
+   carried; group_layout on those bit counts (4:4:4 and 4:2:0, bit_base 1
+   to 7 for the carried form), on a full band as one group, on groups of
+   whole words and on sums past 2^31. Outputs must be equal;
 4. main paths, through ``image_stitch_tpu_torch.concat_to_buffer(...,
    device="cuda")``, each output byte-identical to the same call with
    ``device="cpu"`` (the plain torch versions; the CPU tests hold that path
@@ -45,8 +53,8 @@ path. Phases, each printing its lines before the last:
      canvas, made from a seed) at q85 with restart rows 1 (4:4:4); a 2 x 2
      grid of those tiles with restart rows 0 (4:4:4) and 1 (4:2:0);
      pack_merge must launch once per dispatched band (32 in the 67 MP run),
-     symbol_streams as often, fdct_quant once per quantized band, and no
-     band may be host-coded;
+     symbol_streams and group_layout as often, fdct_quant once per
+     quantized band, and no band may be host-coded;
    - JPEG tiles: the same 64 tiles made JPEGs by the port's own encoder at
      q90 4:2:0, as an 8 x 8 grid to JPEG (band 256, q85, restart rows 1),
      byte-identical to the same call with STITCH_TPU_DEVICE_DECODE=0 (host
@@ -78,8 +86,10 @@ path. Phases, each printing its lines before the last:
    PNG, and of host decode + assembly and host deflate alone; one profiled
    run each of grid to JPEG and grid to PNG. For the JPEG kernels:
    idct_dequant and ycc_rgba on a real tile band of the JPEG-tile grid,
-   fdct_quant and symbol_streams on a real 256 x 8192 band, each against
-   its plain version and its bytes bound; end-to-end MP/s of JPEG tiles to
+   fdct_quant, symbol_streams and group_layout (against ``torch.cumsum``
+   over the same bit counts, the yardstick the port never calls) on a real
+   256 x 8192 band, each against its plain version and its bytes bound;
+   end-to-end MP/s of JPEG tiles to
    JPEG with device decode on and off, and of host Huffman decode alone;
    a profiled run of JPEG tiles to JPEG.
 
@@ -215,7 +225,13 @@ def device_time(fn, reps: int = 20, windows: int = 3, what: str = "") -> dict:
     self device time of the kernels and copies it runs (key_averages),
     summed over ``reps`` calls and divided by ``reps``; median, min and max
     over ``windows`` such windows after a warm-up. Host launch time is not
-    in it."""
+    in it. The calls sit a few milliseconds inside the profiled window: the
+    profiler drops device records whose converted timestamps fall outside
+    it, and a window of 20 short kernels is shorter than that conversion's
+    error. A window that still comes back without device records is taken
+    again, twice at most; after that the time is taken with one pair of
+    CUDA events around ``reps`` back-to-back calls instead, and the line
+    says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -223,23 +239,44 @@ def device_time(fn, reps: int = 20, windows: int = 3, what: str = "") -> dict:
         fn()
     torch.cuda.synchronize()
     per_call = []
-    for _ in range(windows):
+    empty = 0
+    while len(per_call) < windows and empty <= 2:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.005)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(0.005)
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA)
         if us <= 0:
-            fail(f"torch.profiler recorded no device activity for {what}: "
-                 f"{[(e.key, e.count) for e in prof.key_averages()]}")
+            empty += 1
+            say(f"torch.profiler window without device records ({what}): "
+                f"{[(e.key, e.count) for e in prof.key_averages()]}")
+            continue
         per_call.append(us / 1e3 / reps)
+    source = "profiler"
+    if len(per_call) < windows:
+        say(f"torch.profiler gave no device records for {what}: timed with CUDA events around "
+            f"{reps} back-to-back calls instead")
+        source = "events"
+        per_call = []
+        for _ in range(windows):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            per_call.append(a.elapsed_time(b) / reps)
     return {"median": statistics.median(per_call), "min": min(per_call),
-            "max": max(per_call), "reps": windows}
+            "max": max(per_call), "reps": windows, "source": source}
 
 
 def fmt(t: dict) -> str:
-    return f"{t['median']:.4f} ms (min {t['min']:.4f}, max {t['max']:.4f}, n={t['reps']})"
+    by = f", by {t['source']}" if "source" in t else ""
+    return f"{t['median']:.4f} ms (min {t['min']:.4f}, max {t['max']:.4f}, n={t['reps']}{by})"
 
 
 def as_u32(t: torch.Tensor) -> torch.Tensor:
@@ -491,7 +528,8 @@ def check_jpeg_kernels(dev: torch.device) -> dict:
     from image_stitch_tpu_torch.ops import kernels as K
 
     rng = np.random.default_rng(SEED + 3)
-    errs = {"idct_dequant": 0, "ycc_rgba": 0, "fdct_quant": 0, "symbol_streams": 0}
+    errs = {"idct_dequant": 0, "ycc_rgba": 0, "fdct_quant": 0, "symbol_streams": 0,
+            "group_layout": 0}
 
     def note(name: str, err: int, what: str) -> None:
         errs[name] = max(errs[name], err)
@@ -560,12 +598,153 @@ def check_jpeg_kernels(dev: torch.device) -> dict:
         for groups, prev_dc, what in ((BAND_ROWS // mcu, None, "restart groups of 1 MCU row"),
                                       (max(1, BAND_ROWS // mcu // 4), None, "restart groups of 4 MCU rows"),
                                       (1, prev, "the carried form from prev_dc (517, -66, 31)")):
-            got = K.symbol_streams(*blocks, luts, groups, sampling, prev_dc)
-            want = E.symbol_streams_plain(*blocks, luts, groups, sampling, prev_dc)
-            torch.cuda.synchronize()
-            note("symbol_streams", max(max_err(got[0], want[0]), max_err(got[1], want[1])),
+            note("symbol_streams", symbols_err(blocks, luts, groups, sampling, prev_dc),
                  f"{n} {sampling} MCUs (ZRL runs, nonzeros at 63), {what}")
+    check_fdct_variants(dev, rng, note)
+    check_entropy_edges(dev, rng, luts, note)
     return errs
+
+
+def symbols_err(blocks, luts, groups: int, sampling: str, prev_dc) -> int:
+    """Max |symbol_streams - plain| over codes, lengths, block bit counts
+    (the plain lengths summed) and each component's last DC."""
+    from image_stitch_tpu_torch.ops import jpeg_entropy_device as E
+    from image_stitch_tpu_torch.ops import kernels as K
+
+    codes, lens, bits, last_dc = K.symbol_streams(*blocks, luts, groups, sampling, prev_dc)
+    p_codes, p_lens = E.symbol_streams_plain(*blocks, luts, groups, sampling, prev_dc)
+    p_dc = torch.stack([c[-1, 0].to(torch.int32) for c in blocks])
+    torch.cuda.synchronize()
+    return max(max_err(codes, p_codes), max_err(lens, p_lens),
+               max_err(bits, p_lens.sum(dim=1, dtype=torch.int32)), max_err(last_dc, p_dc))
+
+
+def layout_err(bits: torch.Tensor, groups: int, bit_base=None) -> int:
+    """Max |group_layout - plain| over starts, group bits, the largest
+    block and, for the carried form, the total and the next bit base."""
+    from image_stitch_tpu_torch.ops import jpeg_entropy_device as E
+    from image_stitch_tpu_torch.ops import kernels as K
+
+    base = None if bit_base is None else torch.tensor(bit_base, device=bits.device)
+    got = K.group_layout(bits, groups, base)
+    want = E.group_layout_plain(bits, groups, base)
+    torch.cuda.synchronize()
+    if any((g is None) != (w is None) or (g is not None and g.dtype != w.dtype)
+           for g, w in zip(got, want, strict=True)):
+        fail(f"group_layout and its plain version return different kinds: {got}, {want}")
+    return max(max_err(g.reshape(-1), w.reshape(-1)) for g, w in zip(got, want) if g is not None)
+
+
+def check_fdct_variants(dev: torch.device, rng: np.random.Generator, note) -> None:
+    """fdct_quant at widths of one block, off its 128-pixel tile and at the
+    grid's, with pixel strides of 3, 4 and 5 bytes, the band at an aligned
+    address and 4 B past one; every load variant must have run."""
+    from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
+    from image_stitch_tpu_torch.ops import kernels as K
+
+    lq, cq = (torch.from_numpy(t.astype(np.int32)).to(dev) for t in quality_scaled_tables(QUALITY))
+    seen = set()
+    for sampling in ("444", "420"):
+        for width in (8, 16, 24, 264, GRID * TILE):
+            w = -(-width // 16) * 16 if sampling == "420" else width
+            for ch, offset in ((3, 0), (3, 4), (4, 0), (4, 4), (5, 0)):
+                data = rng.integers(0, 256, (32, w, ch), dtype=np.uint8)
+                data[:8, :, :3] = (0, 0, 255)  # pure blue: Cb = 256
+                data[8:12] = 0
+                data[12:16] = 255
+                store = torch.empty(data.size + 16, dtype=torch.uint8, device=dev)
+                band = store[offset : offset + data.size].view(data.shape)
+                band.copy_(torch.from_numpy(data))
+                variant = K.FDCT_VARIANTS[K.fdct_variant(ch, band.data_ptr())]
+                seen.add(variant)
+                got = K.fdct_quant(band, lq, cq, sampling)
+                want = band_to_blocks(sampling)(band, lq, cq)
+                torch.cuda.synchronize()
+                err = max(max_err(a, b) for a, b in zip(got, want))
+                if err:
+                    fail(f"fdct_quant ({variant}) != plain on 32 x {w} x {ch} {sampling}, "
+                         f"{offset} B past alignment: max |diff| {err}")
+        note("fdct_quant", 0, f"{sampling} bands 32 rows by 8 to {GRID * TILE} pixels, strides 3, 4 "
+                              f"and 5 B, aligned and 4 B past, blue, 0 and 255")
+    if seen != set(K.FDCT_VARIANTS):
+        fail(f"fdct_quant variants reached {sorted(seen)}, not all of {K.FDCT_VARIANTS}")
+
+
+def slot_edge_blocks(rng: np.random.Generator, n: int) -> np.ndarray:
+    """(n, 64) int16 natural-order blocks, every 13th run of them the edges
+    of the symbol kernel's mask arithmetic in zigzag order: all zeros, 63
+    nonzeros, runs of 15, 16, 17, 32 and 48 zeros, runs that end at position
+    63, the ballots' word boundary (31 | 32), +-32767, and 63 values of 10
+    bits (over the 768-bit budget); sparse random blocks between."""
+    from image_stitch_tpu_torch.codecs.jpeg.tables import ZIGZAG
+
+    zz = rng.integers(-60, 61, (n, 64)) * (rng.random((n, 64)) < 0.25)
+    zz[:, 0] = rng.integers(-1023, 1024, n)
+    edges = [np.zeros(64), np.r_[7, np.arange(1, 64)]]
+    for run in (15, 16, 17, 32, 48):
+        row = np.zeros(64)
+        row[1], row[2 + run] = 3, -5
+        edges.append(row)
+    for first in (46, 47):
+        row = np.zeros(64)
+        row[first], row[63] = 1, -1
+        edges.append(row)
+    edges.append(np.r_[np.zeros(31), 4, -4, np.zeros(31)])
+    edges.append(np.r_[0, 32767, -32767, np.zeros(60), 32767])
+    edges.append(np.r_[0, rng.integers(512, 1024, 63) * rng.choice([-1, 1], 63)])
+    for i, row in enumerate(edges):
+        zz[i::13, 1:] = row[1:]
+    nat = np.zeros_like(zz)
+    nat[:, ZIGZAG] = zz
+    return nat.astype(np.int16)
+
+
+def check_entropy_edges(dev: torch.device, rng: np.random.Generator, luts: dict, note) -> None:
+    """symbol_streams and group_layout on the edge blocks, as 1, 4, 12 and
+    32 restart groups and carried (bit_base 1 to 7), 4:4:4 and 4:2:0, at a
+    block count that is no multiple of the symbol kernel's 8 warps or the
+    layout's 1024-block chunk; group_layout also on a full band as one
+    group, on groups of whole words and on sums past 2^31."""
+    from image_stitch_tpu_torch.ops import kernels as K
+
+    prev = torch.tensor([517, -66, 31], dtype=torch.int32, device=dev)
+    for sampling in ("444", "420"):
+        luma = 4 if sampling == "420" else 1
+        n = 12 * 32 * 9  # MCUs: 1, 4, 12 and 32 equal groups
+        blocks = [torch.from_numpy(slot_edge_blocks(rng, c)).to(dev) for c in (luma * n, n, n)]
+        for groups in (1, 4, 12, 32):
+            note("symbol_streams", symbols_err(blocks, luts, groups, sampling, None),
+                 f"{n} {sampling} MCUs of edge blocks, {groups} restart groups")
+            bits = K.symbol_streams(*blocks, luts, groups, sampling)[2]
+            note("group_layout", layout_err(bits, groups),
+                 f"{bits.shape[0]} {sampling} blocks' bit counts (max {int(bits.max())}), "
+                 f"{groups} restart groups")
+        odd = [b[: (luma if i == 0 else 1) * 1037].contiguous() for i, b in enumerate(blocks)]
+        note("symbol_streams", symbols_err(odd, luts, 1, sampling, prev),
+             f"1037 {sampling} MCUs of edge blocks carried from prev_dc (517, -66, 31)")
+        bits = K.symbol_streams(*odd, luts, 1, sampling, prev)[2]
+        for bit_base in range(8):
+            note("group_layout", layout_err(bits, 1, bit_base),
+                 f"{bits.shape[0]} {sampling} blocks carried from bit {bit_base}")
+        tail = [b[: (luma if i == 0 else 1) * 37].contiguous() for i, b in enumerate(blocks)]
+        note("symbol_streams", symbols_err(tail, luts, 1, sampling, None),
+             f"one short group of 37 {sampling} MCUs (the tail dispatch)")
+        note("group_layout", layout_err(K.symbol_streams(*tail, luts, 1, sampling)[2], 1),
+             f"one short group of 37 {sampling} MCUs")
+    nb = (BAND_ROWS // 8) * (GRID * TILE // 8) * 3
+    bits = torch.from_numpy(rng.integers(4, 400, nb).astype(np.int32)).to(dev)
+    bits[::97] = 1500  # over the 768-bit budget: counted in full
+    for groups, base in ((1, None), (1, 5), (BAND_ROWS // 8, None), (3, None), (nb // 3, None)):
+        note("group_layout", layout_err(bits, groups, base),
+             f"{nb} random bit counts, {groups} groups"
+             + ("" if base is None else f", carried from bit {base}"))
+    words = torch.full((6 * 40,), 16, dtype=torch.int32, device=dev)
+    note("group_layout", layout_err(words, 6), "6 groups of exactly 20 words")
+    words[39] = 17
+    note("group_layout", layout_err(words, 6), "a group of 20 words and one bit")
+    big = torch.full((4096,), (1 << 20) + 3, dtype=torch.int32, device=dev)
+    note("group_layout", max(layout_err(big, 1, 3), layout_err(big, 2)),
+         "sums past 2^31 (int32 starts wrap as torch's, the total stays 64-bit)")
 
 
 def huffman_tables() -> list:
@@ -601,7 +780,7 @@ def same_as_cpu(out: bytes, opts: dict, what: str) -> None:
 
 
 COUNTED = ("pack_merge", "filter_select", "composite_segments", "idct_dequant", "ycc_rgba",
-           "fdct_quant", "symbol_streams")
+           "fdct_quant", "symbol_streams", "group_layout")
 # What the run under way did outside the kernels' counts, recorded by
 # tracing(): decode_band calls (components, into a band on the card),
 # whole tiles decoded on the host tier, and the kinds of band the JPEG
@@ -652,8 +831,8 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
     """One main-path run through ``image_stitch_tpu_torch.concat_to_buffer``
     with every kernel's launch count set to 0 just before it and read just
     after; each kernel in ``must_launch`` must have launched in this run,
-    pack_merge and symbol_streams once per band dispatched (bands submitted
-    plus re-packs), fdct_quant once per band quantized, filter select once
+    pack_merge, symbol_streams and group_layout once per band dispatched
+    (bands submitted plus re-packs), fdct_quant once per band quantized, filter select once
     per PNG band, idct_dequant once per component and ycc_rgba once per
     decode_band. ``expect`` holds counts of TRACE that must match:
     "decode_band" calls, all of them "into_band" on the card or not,
@@ -692,9 +871,10 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
         if launches["pack_merge"] != counters.bands + counters.repacks:
             fail(f"{name}: {launches['pack_merge']} pack_merge launches for "
                  f"{counters.bands} bands and {counters.repacks} re-packs")
-        if launches["symbol_streams"] != launches["pack_merge"]:
-            fail(f"{name}: {launches['symbol_streams']} symbol_streams launches for "
-                 f"{launches['pack_merge']} pack_merge launches")
+        for k in ("symbol_streams", "group_layout"):
+            if launches[k] != launches["pack_merge"]:
+                fail(f"{name}: {launches[k]} {k} launches for {launches['pack_merge']} "
+                     f"pack_merge launches")
         if launches["fdct_quant"] != launches["pack_merge"] - counters.repacks:
             fail(f"{name}: {launches['fdct_quant']} fdct_quant launches for "
                  f"{launches['pack_merge'] - counters.repacks} quantized bands")
@@ -787,7 +967,7 @@ def png_kernel_timing(dev: torch.device, real_band: tuple) -> tuple[dict, dict]:
         # row types.
         moved[tag] = 2 * band.nbytes + prev.nbytes + band.shape[0]
         t[f"{tag}_kernel"] = time_cuda(lambda: K.filter_select(band, prev, bpp), reps=50)
-        t[f"{tag}_device"] = device_time(lambda: K.filter_select(band, prev, bpp))
+        t[f"{tag}_device"] = device_time(lambda: K.filter_select(band, prev, bpp), what=tag)
         t[f"{tag}_plain"] = time_cuda(lambda: K.filter_select_plain(band, prev, bpp))
     bands = {"composite": (*(torch.from_numpy(a).to(dev) for a in random_segments(
                  rng, SPRITES, BAND_ROWS, GRID * TILE)), (0, 0, 0, 0), BAND_ROWS, GRID * TILE),
@@ -797,7 +977,7 @@ def png_kernel_timing(dev: torch.device, real_band: tuple) -> tuple[dict, dict]:
     for tag, args in bands.items():
         metas, srcs, _bg, h, w = args
         t[f"{tag}_kernel"] = time_cuda(lambda: K.composite_segments(*args), reps=50)
-        t[f"{tag}_device"] = device_time(lambda: K.composite_segments(*args))
+        t[f"{tag}_device"] = device_time(lambda: K.composite_segments(*args), what=tag)
         t[f"{tag}_plain"] = time_cuda(lambda: K.composite_segments_plain(*args), reps=5)
         # Read the metas and the sources, write the band and the tie count.
         moved[tag] = metas.nbytes + srcs.nbytes + h * w * 4 + 4
@@ -806,9 +986,10 @@ def png_kernel_timing(dev: torch.device, real_band: tuple) -> tuple[dict, dict]:
 
 def band_timing(tiles: list[np.ndarray], dev: torch.device) -> tuple[dict, dict, dict]:
     """Per-stage device time of one 256 x 8192 4:4:4 restart band (32
-    groups of one MCU row), kernel path against plain path (quantize and
-    symbols are the fdct_quant and symbol_streams kernels, each also timed
-    as its plain version); pack_merge against its plain version and
+    groups of one MCU row), kernel path against plain path (quantize,
+    symbols and layout are the fdct_quant, symbol_streams and group_layout
+    kernels, each also timed as its plain version); pack_merge against its
+    plain version and
     against ``index_add_`` of the same words.
     Returns (times, max |kernel - plain| on that band, pack_merge's bytes
     moved)."""
@@ -826,8 +1007,8 @@ def band_timing(tiles: list[np.ndarray], dev: torch.device) -> tuple[dict, dict,
     n_groups = BAND_ROWS // 8
 
     blocks = jpeg_quantize(band, lq, cq)
-    codes, lens = E._symbol_streams_flat(*blocks, luts, n_groups)
-    starts, group_bits, _ = E._group_layout(lens, n_groups)
+    codes, lens, block_bits, _ = K.symbol_streams(*blocks, luts, n_groups)
+    starts, group_bits, *_ = K.group_layout(block_bits, n_groups)
     used = int(((group_bits.to(torch.int64) + 31) >> 5).sum())
     need_per_group = -(-used // n_groups)
     cap_words = max(64, -(-need_per_group // 256) * 256)
@@ -870,16 +1051,19 @@ def band_timing(tiles: list[np.ndarray], dev: torch.device) -> tuple[dict, dict,
     t = {
         "quantize": time_cuda(lambda: jpeg_quantize(band, lq, cq)),
         "quantize_plain": time_cuda(lambda: band_to_blocks("444")(band, lq, cq)),
-        "symbols": time_cuda(lambda: E._symbol_streams_flat(*blocks, luts, n_groups)),
+        "symbols": time_cuda(lambda: K.symbol_streams(*blocks, luts, n_groups)),
         "symbols_plain": time_cuda(lambda: E.symbol_streams_plain(*blocks, luts, n_groups)),
-        "layout": time_cuda(lambda: E._group_layout(lens, n_groups)),
+        "layout": time_cuda(lambda: K.group_layout(block_bits, n_groups)),
+        "layout_plain": time_cuda(lambda: E._group_layout(lens, n_groups)),
         "pack_merge_kernel": time_cuda(
             lambda: K.pack_merge(codes, lens, starts, lw, n_words), reps=50),
-        "pack_merge_device": device_time(lambda: K.pack_merge(codes, lens, starts, lw, n_words)),
+        "pack_merge_device": device_time(lambda: K.pack_merge(codes, lens, starts, lw, n_words),
+                                         what="pack_merge"),
         "pack_merge_plain": time_cuda(
             lambda: K.pack_merge_plain(codes, lens, starts, lw, n_words)),
         "index_add_library": time_cuda(lambda: dense_l.index_add_(0, idx, vals), reps=50),
-        "index_add_device": device_time(lambda: dense_l.index_add_(0, idx, vals)),
+        "index_add_device": device_time(lambda: dense_l.index_add_(0, idx, vals),
+                                        what="index_add_"),
         "band_kernel_path": time_cuda(kernel_path),
         "band_plain_path": time_cuda(plain_path),
     }
@@ -897,11 +1081,11 @@ def jpeg_tiles(tiles_png: list[bytes], dev: torch.device, sampling: str) -> list
 
 
 def jpeg_kernel_timing(tiles_jpeg: list[bytes], dev: torch.device) -> tuple[dict, dict, dict]:
-    """The four JPEG kernels on real inputs of the JPEG-tile grid, each
+    """The five JPEG kernels on real inputs of the JPEG-tile grid, each
     against its plain version: idct_dequant on the luma window of one
     tile's second band and ycc_rgba on that band's three windows into the
-    256 x 8192 band; fdct_quant and symbol_streams (32 restart groups) on
-    the grid's second band, decoded on the card. Returns (times, bytes
+    256 x 8192 band; fdct_quant, symbol_streams and group_layout (32
+    restart groups) on the grid's second band, decoded on the card. Returns (times, bytes
     each must move, max |kernel - plain| on these inputs)."""
     from image_stitch_tpu_torch.codecs.jpeg.device_decoder import DeviceJpegDecoder
     from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
@@ -949,22 +1133,39 @@ def jpeg_kernel_timing(tiles_jpeg: list[bytes], dev: torch.device) -> tuple[dict
     moved["fdct"] = band.nbytes + lq.nbytes + cq.nbytes + sum(b.nbytes for b in blocks)
     luts = E.build_entropy_luts(*huffman_tables(), dev)
     n_groups = BAND_ROWS // 8
-    codes, lens = K.symbol_streams(*blocks, luts, n_groups)
-    p_codes, p_lens = E.symbol_streams_plain(*blocks, luts, n_groups)
-    errs["symbol_streams"] = max(max_err(codes, p_codes), max_err(lens, p_lens))
+    codes, lens, block_bits, last_dc = K.symbol_streams(*blocks, luts, n_groups)
+    errs["symbol_streams"] = symbols_err(blocks, luts, n_groups, "444", None)
     t["symbols_kernel"] = time_cuda(lambda: K.symbol_streams(*blocks, luts, n_groups), reps=50)
     t["symbols_device"] = device_time(lambda: K.symbol_streams(*blocks, luts, n_groups),
                                      what="symbol_streams")
     t["symbols_plain"] = time_cuda(lambda: E.symbol_streams_plain(*blocks, luts, n_groups), reps=5)
-    # Read the blocks and the table, write the codes and lengths.
+    # Read the blocks and the table, write the codes, the lengths, the
+    # blocks' bit counts and the last DCs.
     moved["symbols"] = (sum(b.nbytes for b in blocks) + luts["packed"].nbytes + codes.nbytes
-                        + lens.nbytes)
+                        + lens.nbytes + block_bits.nbytes + last_dc.nbytes)
+    # group_layout on that band's bit counts: 32 restart groups, and the
+    # same blocks as one carried stream; torch.cumsum over the same counts
+    # is the one PyTorch call nearest to it (the port never calls it).
+    errs["group_layout"] = max(layout_err(block_bits, n_groups), layout_err(block_bits, 1, 5))
+    base = torch.tensor(5, device=dev)
+    starts, group_bits, *_ = K.group_layout(block_bits, n_groups)
+    t["layout_kernel"] = time_cuda(lambda: K.group_layout(block_bits, n_groups), reps=50)
+    t["layout_device"] = device_time(lambda: K.group_layout(block_bits, n_groups),
+                                    what="group_layout")
+    t["layout_plain"] = time_cuda(lambda: E._group_layout(lens, n_groups))
+    t["layout_carried_device"] = device_time(lambda: K.group_layout(block_bits, 1, base),
+                                            what="group_layout, carried")
+    t["layout_carried_plain"] = time_cuda(lambda: E.group_layout_plain(block_bits, 1, base))
+    t["cumsum_library"] = time_cuda(lambda: torch.cumsum(block_bits, 0), reps=50)
+    t["cumsum_device"] = device_time(lambda: torch.cumsum(block_bits, 0), what="torch.cumsum")
+    # Read the bit counts, write the starts, the groups' bits and the maximum.
+    moved["layout"] = block_bits.nbytes + starts.nbytes + group_bits.nbytes + 4
     torch.cuda.synchronize()
     for name, err in errs.items():
         if err:
             fail(f"real JPEG band: {name} != plain, max |diff| {err}")
-    say(f"idct_dequant, ycc_rgba, fdct_quant, symbol_streams == plain on the JPEG-tile grid's "
-        f"band {y0 // BAND_ROWS}")
+    say(f"idct_dequant, ycc_rgba, fdct_quant, symbol_streams, group_layout == plain on the "
+        f"JPEG-tile grid's band {y0 // BAND_ROWS}")
     return t, moved, errs
 
 
@@ -1120,7 +1321,7 @@ def main() -> None:
     mp_small = SMALL * SMALL * TILE * TILE / 1e6
     grid_tiles = {**grid_jpeg, "inputs": tiles_jpeg}
     n_bands = GRID * TILE // BAND_ROWS
-    encode = ("fdct_quant", "symbol_streams", "pack_merge")
+    encode = ("fdct_quant", "symbol_streams", "group_layout", "pack_merge")
     decode = ("idct_dequant", "ycc_rgba")
     launches, comp_err, real_band = main_paths([
         (f"grid -> JPEG ri=1 444 q{QUALITY}", grid_jpeg, mp_grid, encode, "cpu",
@@ -1178,13 +1379,17 @@ def main() -> None:
                        ("idct", "a JPEG tile band's luma window"),
                        ("ycc", "a JPEG tile band's windows into 256x8192"),
                        ("fdct", "the JPEG-tile grid's RGBA band 256x8192, 4:4:4"),
-                       ("symbols", "that band's blocks, 32 restart groups")):
+                       ("symbols", "that band's blocks, 32 restart groups"),
+                       ("layout", "that band's bit counts, 32 restart groups")):
         for which in ("kernel", "device", "plain"):
             say(f"{name}_{which} ({what}): {fmt(t[f'{name}_{which}'])} [{card}]")
         if name in moved:
             b = bound_ms(moved[name])
             say(f"{name} bound: {moved[name]} B = {b:.4f} ms; device time at "
                 f"{100 * b / t[f'{name}_device']['median']:.1f}% of it [{card}]")
+    say(f"layout of that band as one carried stream: device {fmt(t['layout_carried_device'])}, "
+        f"plain {fmt(t['layout_carried_plain'])}; torch.cumsum over the same bit counts: "
+        f"{fmt(t['cumsum_library'])}, device {fmt(t['cumsum_device'])} [{card}]")
     say(f"decode_band of one 256-row tile band (3 idct_dequant, 1 ycc_rgba, 3 uploads): "
         f"{fmt(t['decode_band'])} [{card}]")
     for name, opts, mp in ((f"grid_jpeg 67.1 MP ri=1 q{QUALITY}", grid_jpeg, mp_grid),
@@ -1245,19 +1450,23 @@ def main() -> None:
          "bound_ms": bound_ms(moved["composite"]), "bound_by": "bytes",
          "library_ms": None},
     ]
-    for name, tag, source, replaces in (
-        ("idct_dequant", "idct", "idct.cu", "image_stitch_tpu/ops/jpeg_idct_device.py:521"),
+    for name, tag, source, replaces, library in (
+        ("idct_dequant", "idct", "idct.cu", "image_stitch_tpu/ops/jpeg_idct_device.py:521", None),
         ("ycc_rgba", "ycc", "ycc.cu", "image_stitch_tpu/ops/jpeg_idct_device.py:437 and :457 "
-                                      "(image_stitch_tpu/codecs/jpeg/device_decoder.py:57)"),
-        ("fdct_quant", "fdct", "fdct_quant.cu", "image_stitch_tpu/ops/device.py:204 and :224"),
+                                      "(image_stitch_tpu/codecs/jpeg/device_decoder.py:57)", None),
+        ("fdct_quant", "fdct", "fdct_quant.cu", "image_stitch_tpu/ops/device.py:204 and :224",
+         None),
         ("symbol_streams", "symbols", "symbols.cu",
-         "image_stitch_tpu/ops/jpeg_entropy_device.py:560 and :286"),
+         "image_stitch_tpu/ops/jpeg_entropy_device.py:560 and :286", None),
+        ("group_layout", "layout", "layout.cu",
+         "image_stitch_tpu/ops/jpeg_entropy_device.py:1076 and :372", "cumsum"),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": f"image_stitch_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
             "ms": t[f"{tag}_device"]["median"], "plain_ms": t[f"{tag}_plain"]["median"],
-            "bound_ms": bound_ms(moved[tag]), "bound_by": "bytes", "library_ms": None})
+            "bound_ms": bound_ms(moved[tag]), "bound_by": "bytes",
+            "library_ms": t[f"{library}_device"]["median"] if library else None})
     for k in kernels:
         say(f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "
             f"({100 * k['bound_ms'] / k['ms']:.1f}% of it) [{card}]")

@@ -19,7 +19,15 @@ from __future__ import annotations
 
 from .errors import StitchError
 
-from .api import concat_streaming, concat_to_buffer, concat_to_file
+from .api import (
+    StreamingConcatenator,
+    concat,
+    concat_arrays,
+    concat_streaming,
+    concat_to_buffer,
+    concat_to_file,
+    concat_to_stream,
+)
 from .codecs.heic import heic_plugin
 from .codecs.jpeg.decoder import jpeg_plugin
 from .codecs.png.decoder import png_plugin
@@ -34,8 +42,12 @@ set_default_decoder_plugins([png_plugin(), jpeg_plugin(), heic_plugin()])
 __all__ = [
     "EncodeCounters",
     "StitchError",
+    "StreamingConcatenator",
     "TorchStreamingConcatenator",
+    "concat",
+    "concat_arrays",
     "concat_streaming",
     "concat_to_buffer",
     "concat_to_file",
+    "concat_to_stream",
 ]

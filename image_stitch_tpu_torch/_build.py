@@ -144,9 +144,12 @@ def load_cuda_kernels() -> ctypes.CDLL:
         lib.ycc_rgba_launch.restype = _I
         lib.ycc_rgba_launch.argtypes = [_P, _P, _P, _GEOM, _I, _P, _I64, _I, _I, _I, _P]
         lib.fdct_quant_launch.restype = _I
-        lib.fdct_quant_launch.argtypes = [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P]
+        lib.fdct_quant_launch.argtypes = [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P]
         lib.symbol_streams_launch.restype = _I
-        lib.symbol_streams_launch.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
+        lib.symbol_streams_launch.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                              _P]
+        lib.group_layout_launch.restype = _I
+        lib.group_layout_launch.argtypes = [_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P]
         _loaded["cuda"] = lib
     return _loaded["cuda"]
 
@@ -191,8 +194,14 @@ def load_host_shim() -> ctypes.CDLL:
         lib.fdct_quant_host.restype = None
         lib.fdct_quant_host.argtypes = [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P]
         lib.symbol_streams_host.restype = None
-        lib.symbol_streams_host.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]
+        lib.symbol_streams_host.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+        lib.sym_divides_host.restype = None
+        lib.sym_divides_host.argtypes = [_P, _P, _P, _I]
+        lib.group_layout_host.restype = None
+        lib.group_layout_host.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P]
         lib.fdct_quantize_host.restype = None
         lib.fdct_quantize_host.argtypes = [_P, _P, _P, _I]
+        lib.fdct_quantize_recip_host.restype = None
+        lib.fdct_quantize_recip_host.argtypes = [_P, _P, _P, _I]
         _loaded["host"] = lib
     return _loaded["host"]

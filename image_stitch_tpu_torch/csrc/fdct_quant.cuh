@@ -11,7 +11,15 @@
 // - the row pass (final = false) then the column pass (final = true) of
 //   jfdctint.c's butterfly, outputs scaled by 8;
 // - round half away from zero: sign(c) * floor((|c| + 4q) / (8q)), an exact
-//   integer division (no -use_fast_math, which would not touch it anyway).
+//   integer division (fdct_quantize), which the kernel takes by reciprocal
+//   (fdct_quantize_recip: a multiply-high and a one-sided correction).
+//
+// The kernel's split, which the shim repeats: a thread takes one row of 8
+// pixels (fdct_row_444: colour once, then the row pass of all three
+// components; 4:2:0: fdct_patch_420, two rows at once, with the chroma's
+// 2x2 boxes, and fdct_pass over a row of boxes) and later one column of a
+// block (fdct_column: the column pass and the quantizer). A thread never
+// holds more than a row or a column.
 #pragma once
 
 #include <stdint.h>
@@ -89,47 +97,85 @@ __host__ __device__ __forceinline__ int16_t fdct_quantize(int32_t c, int32_t q) 
   return (int16_t)(c < 0 ? -(int32_t)quot : (int32_t)quot);
 }
 
-// s: 64 samples of one component, row-major, before the level shift;
-// q: the natural-order table; out: 64 int16 quantized natural-order
-// coefficients. s is overwritten.
-__host__ __device__ __forceinline__ void fdct_quant_block(int32_t s[64], const int32_t* q,
-                                                          int16_t* out) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] -= 128;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) fdct_pass(s + 8 * r, 1, false);
-#pragma unroll
-  for (int c = 0; c < 8; ++c) fdct_pass(s + c, 8, true);
-#pragma unroll
-  for (int i = 0; i < 64; ++i) out[i] = fdct_quantize(s[i], q[i]);
+// floor(2^32 / (8q)) for a quantizer q >= 1: the reciprocal that
+// fdct_quantize_recip multiplies by.
+__host__ __device__ __forceinline__ uint32_t fdct_recip(int32_t q) {
+  return (uint32_t)(0x100000000ull / (8ull * (uint32_t)q));
 }
 
-// The 64 samples of component `comp` of the 8x8 block whose top-left pixel
-// is (y0, x0) of a band of `w` pixels, `ch` bytes per pixel (R, G, B first);
-// with `sub` (4:2:0 chroma) each sample is the (sum + 2) >> 2 of the 2x2
-// pixels at (y0 + 2r, x0 + 2c).
-__host__ __device__ __forceinline__ void fdct_gather(const uint8_t* band, int w, int ch,
-                                                     int comp, int y0, int x0, bool sub,
-                                                     int32_t s[64]) {
-  for (int r = 0; r < 8; ++r) {
-    for (int c = 0; c < 8; ++c) {
-      int32_t v;
-      if (sub) {
-        v = 2;
-        for (int a = 0; a < 2; ++a) {
-          for (int bb = 0; bb < 2; ++bb) {
-            const uint8_t* px =
-                band + ((size_t)(y0 + 2 * r + a) * (size_t)w + (size_t)(x0 + 2 * c + bb)) * ch;
-            v += fdct_ycc(comp, px[0], px[1], px[2]);
-          }
-        }
-        v >>= 2;
-      } else {
-        const uint8_t* px = band + ((size_t)(y0 + r) * (size_t)w + (size_t)(x0 + c)) * ch;
-        v = fdct_ycc(comp, px[0], px[1], px[2]);
-      }
-      s[r * 8 + c] = v;
+// fdct_quantize without the division. With n = |c| + 4q, d = 8q and m =
+// fdct_recip(q) = 2^32 / d - e, 0 <= e < 1: n m / 2^32 = n / d - n e / 2^32
+// lies in (n / d - 1, n / d] for every n below 2^32, so its floor is the
+// quotient or one less, and one step up where the remainder still holds d
+// fixes it. Exact for every coefficient and every q from 1 to 2^28.
+__host__ __device__ __forceinline__ int16_t fdct_quantize_recip(int32_t c, int32_t q,
+                                                                uint32_t m) {
+  const uint32_t mag = (uint32_t)(c < 0 ? -c : c);
+  const uint32_t d = 8u * (uint32_t)q;
+  const uint32_t n = mag + 4u * (uint32_t)q;
+#ifdef __CUDA_ARCH__
+  uint32_t quot = __umulhi(n, m);
+#else
+  uint32_t quot = (uint32_t)(((uint64_t)n * m) >> 32);
+#endif
+  if (n - quot * d >= d) ++quot;
+  return (int16_t)(c < 0 ? -(int32_t)quot : (int32_t)quot);
+}
+
+// One row of 8 pixels (r, g, b) of a 4:4:4 block: colour, level shift and
+// the row pass of each component, into y, cb, cr.
+__host__ __device__ __forceinline__ void fdct_row_444(const int32_t r[8], const int32_t g[8],
+                                                      const int32_t b[8], int32_t y[8],
+                                                      int32_t cb[8], int32_t cr[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    y[i] = fdct_ycc(0, r[i], g[i], b[i]) - 128;
+    cb[i] = fdct_ycc(1, r[i], g[i], b[i]) - 128;
+    cr[i] = fdct_ycc(2, r[i], g[i], b[i]) - 128;
+  }
+  fdct_pass(y, 1, false);
+  fdct_pass(cb, 1, false);
+  fdct_pass(cr, 1, false);
+}
+
+// Two rows of 8 pixels, one above the other, of a 4:2:0 MCU (px[0] the
+// upper row's r, g, b, px[1] the lower's): each row's luma after the row
+// pass into y[0], y[1]; the four 2x2 boxes' (sum + 2) >> 2 of Cb and Cr,
+// level-shifted, before any pass, into cb and cr.
+__host__ __device__ __forceinline__ void fdct_patch_420(const int32_t px[2][3][8],
+                                                        int32_t y[2][8], int32_t cb[4],
+                                                        int32_t cr[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) cb[k] = cr[k] = 2;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int32_t r = px[a][0][i], g = px[a][1][i], b = px[a][2][i];
+      y[a][i] = fdct_ycc(0, r, g, b) - 128;
+      cb[i >> 1] += fdct_ycc(1, r, g, b);
+      cr[i >> 1] += fdct_ycc(2, r, g, b);
     }
+    fdct_pass(y[a], 1, false);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    cb[k] = (cb[k] >> 2) - 128;
+    cr[k] = (cr[k] >> 2) - 128;
+  }
+}
+
+// Column c of a block after its row passes, in v: the column pass, then
+// the quantizer with the table's column c (q and m = fdct_recip(q), both
+// natural order); out gets coefficients c, 8 + c, ..., 56 + c at out[0],
+// out[stride], ...
+__host__ __device__ __forceinline__ void fdct_column(int32_t v[8], int c, const int32_t* q,
+                                                     const uint32_t* m, int16_t* out,
+                                                     int stride) {
+  fdct_pass(v, 1, true);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    out[r * stride] = fdct_quantize_recip(v[r], q[r * 8 + c], m[r * 8 + c]);
   }
 }
 

@@ -3,13 +3,17 @@
 // g++ compiles the kernels' .cuh bodies here without CUDA, so the test suite
 // can hold the kernels' own arithmetic against the plain torch versions on
 // a machine without a GPU. The encoder never loads this library.
+#include <limits.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <vector>
 
 #include "composite.cuh"
 #include "fdct_quant.cuh"
 #include "filter.cuh"
 #include "idct.cuh"
+#include "layout.cuh"
 #include "pack_merge.cuh"
 #include "symbols.cuh"
 #include "ycc.cuh"
@@ -164,38 +168,189 @@ extern "C" void ycc_rgba_host(const uint8_t* p0, const uint8_t* p1, const uint8_
   }
 }
 
-// Each block of each component, in the kernel's orders.
+// Eight pixels from p, ch bytes apart, as the kernel's byte loads.
+static void fdct_load8(const uint8_t* p, int ch, int32_t r[8], int32_t g[8], int32_t b[8]) {
+  for (int i = 0; i < 8; ++i) {
+    r[i] = p[i * ch];
+    g[i] = p[i * ch + 1];
+    b[i] = p[i * ch + 2];
+  }
+}
+
+// The band as the card's threads split it: a row task per 8 pixels (colour
+// once, the row passes of all components; 4:2:0: two rows and their chroma
+// boxes, then a row pass per row of boxes), the rows kept in a workspace,
+// then a column task per block column (column pass, reciprocal quantizer),
+// in the kernel's block orders.
 extern "C" void fdct_quant_host(const uint8_t* band, int h, int w, int ch, const int32_t* lq,
                                 const int32_t* cq, int s420, int16_t* y, int16_t* cb,
                                 int16_t* cr) {
-  const int n_luma = (h / 8) * (w / 8);
+  const int32_t* q[2] = {lq, cq};
+  uint32_t m[2][64];
+  for (int t = 0; t < 2; ++t) {
+    for (int i = 0; i < 64; ++i) m[t][i] = fdct_recip(q[t][i]);
+  }
   int16_t* outs[3] = {y, cb, cr};
-  for (int comp = 0; comp < 3; ++comp) {
-    const int n = comp == 0 || !s420 ? n_luma : n_luma / 4;
+  if (!s420) {
+    const int n = (h / 8) * (w / 8);
     for (int i = 0; i < n; ++i) {
       int y0, x0;
-      fdct_block_origin(i, comp, w, s420 != 0, &y0, &x0);
-      int32_t s[64];
-      fdct_gather(band, w, ch, comp, y0, x0, s420 != 0 && comp != 0, s);
-      fdct_quant_block(s, comp == 0 ? lq : cq, outs[comp] + (size_t)i * 64);
+      fdct_block_origin(i, 0, w, false, &y0, &x0);
+      int32_t ws[3][64];
+      for (int k = 0; k < 8; ++k) {
+        int32_t r[8], g[8], b[8];
+        fdct_load8(band + ((size_t)(y0 + k) * w + x0) * ch, ch, r, g, b);
+        fdct_row_444(r, g, b, ws[0] + 8 * k, ws[1] + 8 * k, ws[2] + 8 * k);
+      }
+      for (int c = 0; c < 8; ++c) {
+        for (int comp = 0; comp < 3; ++comp) {
+          const int t = comp != 0;
+          int32_t v[8];
+          for (int r = 0; r < 8; ++r) v[r] = ws[comp][r * 8 + c];
+          fdct_column(v, c, q[t], m[t], outs[comp] + (size_t)i * 64 + c, 8);
+        }
+      }
+    }
+    return;
+  }
+  const int n_mcu = (h / 16) * (w / 16);
+  for (int mi = 0; mi < n_mcu; ++mi) {
+    int y0, x0;
+    fdct_block_origin(mi, 1, w, true, &y0, &x0);
+    int32_t luma[16][16], chroma[2][8][8];
+    for (int k = 0; k < 8; ++k) {
+      for (int hi = 0; hi < 2; ++hi) {
+        int32_t px[2][3][8], yy[2][8];
+        for (int a = 0; a < 2; ++a) {
+          fdct_load8(band + ((size_t)(y0 + 2 * k + a) * w + x0 + hi * 8) * ch, ch, px[a][0],
+                     px[a][1], px[a][2]);
+        }
+        fdct_patch_420(px, yy, chroma[0][k] + hi * 4, chroma[1][k] + hi * 4);
+        for (int a = 0; a < 2; ++a) {
+          for (int i = 0; i < 8; ++i) luma[2 * k + a][hi * 8 + i] = yy[a][i];
+        }
+      }
+    }
+    for (int comp = 0; comp < 2; ++comp) {
+      for (int k = 0; k < 8; ++k) fdct_pass(chroma[comp][k], 1, false);
+    }
+    for (int c = 0; c < 8; ++c) {
+      int32_t v[8];
+      for (int j = 0; j < 4; ++j) {  // TL, TR, BL, BR
+        for (int r = 0; r < 8; ++r) v[r] = luma[(j >> 1) * 8 + r][(j & 1) * 8 + c];
+        fdct_column(v, c, q[0], m[0], y + ((size_t)mi * 4 + j) * 64 + c, 8);
+      }
+      for (int comp = 0; comp < 2; ++comp) {
+        for (int r = 0; r < 8; ++r) v[r] = chroma[comp][r][c];
+        fdct_column(v, c, q[1], m[1], outs[1 + comp] + (size_t)mi * 64 + c, 8);
+      }
     }
   }
 }
 
-// symbol_block_at for every block of the MCU sequence; prev_dc is null for
-// restart groups.
+// Every block of the MCU sequence as a warp takes it: the two masks of its
+// nonzero AC positions (the kernel's ballots), then symbol_slot for each of
+// the 65 slots from the masks and the slot's own value, with the table
+// combined as the kernel stages it, and the sum of the lengths. prev_dc is
+// null for restart groups.
 extern "C" void symbol_streams_host(const int16_t* y, const int16_t* cb, const int16_t* cr,
                                     int n_mcu, int s420, int n_groups, const int32_t* prev_dc,
-                                    const int32_t* luts, int32_t* codes, int32_t* lens) {
+                                    const int32_t* luts, int32_t* codes, int32_t* lens,
+                                    int32_t* block_bits, int32_t* last_dc) {
   static const uint8_t zigzag[64] = JPEG_ZIGZAG_ORDER;
+  uint32_t comb[SYMC_WORDS];
+  for (int j = 0; j < SYMC_WORDS; ++j) comb[j] = symbol_combined_entry(luts, j);
   const int n_blocks = n_mcu * (s420 ? 6 : 3);
+  const uint64_t magic = sym_divides_magic((uint32_t)(n_mcu / n_groups));
   for (int b = 0; b < n_blocks; ++b) {
-    symbol_block_at(b, n_blocks, s420 != 0, n_groups, y, cb, cr, prev_dc, luts, zigzag,
-                    codes + (size_t)b * SYM_SLOTS, lens + (size_t)b * SYM_SLOTS);
+    const SymBlock sb = symbol_block_locate(b, n_blocks, s420 != 0, magic, y, cb, cr, prev_dc);
+    const int t = sb.comp == 0 ? 0 : 1;
+    uint32_t lo = 0, hi = 0;
+    for (int p = 1; p < 32; ++p) lo |= (uint32_t)(sb.blk[zigzag[p]] != 0) << p;
+    for (int p = 32; p < 64; ++p) hi |= (uint32_t)(sb.blk[zigzag[p]] != 0) << (p - 32);
+    if (sb.last) last_dc[sb.comp] = sb.blk[0];
+    int32_t bits = 0;
+    for (int p = 0; p <= 64; ++p) {
+      const int32_t v = p == 0 ? (int32_t)sb.blk[0] - sb.pred : (p < 64 ? sb.blk[zigzag[p]] : 0);
+      const SymSlot slot = symbol_slot(p, lo, hi, v, t, comb);
+      codes[(size_t)b * SYM_SLOTS + p] = slot.code;
+      lens[(size_t)b * SYM_SLOTS + p] = slot.len;
+      bits += slot.len;
+    }
+    block_bits[b] = bits;
   }
 }
 
-// fdct_quantize of each (coefficient, quantizer) pair.
+// The layout as the card's CTAs split it: each chunk's own scan and
+// aggregate first, then each chunk's base from the aggregates of the chunks
+// before it. bit_base and totals are null for restart groups.
+extern "C" void group_layout_host(const int32_t* block_bits, int n_blocks, int n_groups,
+                                  const int64_t* bit_base, int32_t* starts, int32_t* group_bits,
+                                  int32_t* max_bits, int64_t* totals) {
+  const int group_len = n_blocks / n_groups;
+  const int cpg = (group_len + LAYOUT_CHUNK - 1) / LAYOUT_CHUNK;
+  const int n_chunks = n_groups * cpg;
+  std::vector<int64_t> agg(n_chunks);
+  std::vector<int32_t> amax(n_chunks);
+  for (int k = 0; k < n_chunks; ++k) {
+    const LayoutChunk ck = layout_chunk(k, n_blocks, n_groups, cpg);
+    uint32_t at = 0u;
+    agg[k] = 0;
+    amax[k] = INT_MIN;
+    for (int i = 0; i < ck.count; ++i) {
+      const int32_t v = block_bits[ck.first + i];
+      starts[ck.first + i] = (int32_t)at;  // within the chunk, until its base is known
+      at += (uint32_t)v;
+      agg[k] += v;
+      amax[k] = v > amax[k] ? v : amax[k];
+    }
+  }
+  const int64_t base_bit = bit_base != nullptr ? *bit_base : 0;
+  for (int k = 0; k < n_chunks; ++k) {
+    const LayoutChunk ck = layout_chunk(k, n_blocks, n_groups, cpg);
+    uint32_t words = 0u;
+    int64_t in_group = 0;
+    int32_t mx = INT_MIN;
+    for (int h = 0; h < ck.group; ++h) {
+      int64_t group_sum = 0;
+      for (int c = 0; c < cpg; ++c) {
+        group_sum += agg[h * cpg + c];
+        mx = amax[h * cpg + c] > mx ? amax[h * cpg + c] : mx;
+      }
+      words += (uint32_t)layout_used_words(group_sum);
+    }
+    for (int c = 0; c < ck.index; ++c) {
+      in_group += agg[ck.group * cpg + c];
+      mx = amax[ck.group * cpg + c] > mx ? amax[ck.group * cpg + c] : mx;
+    }
+    const uint32_t base = layout_chunk_base(words, in_group, base_bit);
+    for (int i = 0; i < ck.count; ++i) {
+      starts[ck.first + i] = (int32_t)((uint32_t)starts[ck.first + i] + base);
+    }
+    const int64_t group_sum = in_group + agg[k];
+    if (ck.index == cpg - 1) group_bits[ck.group] = (int32_t)group_sum;
+    if (k == n_chunks - 1) {
+      *max_bits = amax[k] > mx ? amax[k] : mx;
+      if (totals != nullptr) {
+        totals[0] = base_bit + group_sum;
+        totals[1] = (base_bit + group_sum) & 7;
+      }
+    }
+  }
+}
+
+// sym_divides(n, sym_divides_magic(d)) for each (n, d) pair.
+extern "C" void sym_divides_host(const uint32_t* n, const uint32_t* d, uint8_t* out, int count) {
+  for (int i = 0; i < count; ++i) out[i] = sym_divides(n[i], sym_divides_magic(d[i]));
+}
+
+// fdct_quantize of each (coefficient, quantizer) pair: the exact division.
 extern "C" void fdct_quantize_host(const int32_t* c, const int32_t* q, int16_t* out, int n) {
   for (int i = 0; i < n; ++i) out[i] = fdct_quantize(c[i], q[i]);
+}
+
+// The same by reciprocal, as the kernel takes it.
+extern "C" void fdct_quantize_recip_host(const int32_t* c, const int32_t* q, int16_t* out,
+                                         int n) {
+  for (int i = 0; i < n; ++i) out[i] = fdct_quantize_recip(c[i], q[i], fdct_recip(q[i]));
 }

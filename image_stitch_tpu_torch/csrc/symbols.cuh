@@ -2,7 +2,10 @@
 // CUDA kernel (symbols.cu) and the serial host shim (host_shim.cpp).
 //
 // Same arithmetic as image_stitch_tpu_torch/ops/jpeg_entropy_device.py
-// symbol_streams_plain (_streams_from_diffs): a block's 65 slots are
+// symbol_streams_plain (_streams_from_diffs), slot by slot (symbol_slot): the
+// kernel gives a warp's lanes two slots each, the shim runs them in a loop,
+// both from the block's masks of nonzero positions.
+// A block's 65 slots are
 // - slot 0, DC: the difference's size category s, its table's code << s,
 //   then the value bits;
 // - slots 1..63, the AC positions in zigzag order: a nonzero v gets the
@@ -51,82 +54,151 @@ __host__ __device__ __forceinline__ int32_t sym_value_bits(int32_t v, int size) 
   return (v < 0 ? v + mask : v) & mask;
 }
 
-// blk: the block's 64 natural-order coefficients; diff: its DC difference;
-// t: 0 luma, 1 chroma; lut: the packed table; zigzag: natural index of each
-// zigzag position; codes, lens: the block's 65 slots.
-__host__ __device__ __forceinline__ void symbol_block(const int16_t* blk, int32_t diff, int t,
-                                                      const int32_t* lut, const uint8_t* zigzag,
-                                                      int32_t* codes, int32_t* lens) {
-  const int ds = sym_bit_size(diff);
-  const int32_t dc_len = lut[SYM_DC_LEN + 16 * t + ds] + ds;
-  codes[0] = dc_len > 0 ? (lut[SYM_DC_CODE + 16 * t + ds] << ds) | sym_value_bits(diff, ds) : 0;
-  lens[0] = dc_len;
-  int last = 0;
-  for (int p = 63; p > 0; --p) {
-    if (blk[zigzag[p]] != 0) {
-      last = p;
-      break;
-    }
+// The kernel's table in shared memory: one word per symbol, code | len <<
+// 16 (a Huffman code has at most 16 bits), made from the packed table by
+// symbol_combined_entry; row 0 luma, row 1 chroma.
+#define SYMC_DC 0     // (2, 16)
+#define SYMC_AC 32    // (2, 256)
+#define SYMC_ZRL 544  // (2,)
+#define SYMC_EOB 546  // (2,)
+#define SYMC_WORDS 548
+
+__host__ __device__ __forceinline__ uint32_t symbol_combined_entry(const int32_t* packed,
+                                                                   int j) {
+  int code_at, len_at;
+  if (j < SYMC_AC) {
+    code_at = SYM_DC_CODE + j;
+    len_at = SYM_DC_LEN + j;
+  } else if (j < SYMC_ZRL) {
+    code_at = SYM_AC_CODE + j - SYMC_AC;
+    len_at = SYM_AC_LEN + j - SYMC_AC;
+  } else if (j < SYMC_EOB) {
+    code_at = SYM_ZRL_CODE + j - SYMC_ZRL;
+    len_at = SYM_ZRL_LEN + j - SYMC_ZRL;
+  } else {
+    code_at = SYM_EOB_CODE + j - SYMC_EOB;
+    len_at = SYM_EOB_LEN + j - SYMC_EOB;
   }
-  int prev = 0;  // position of the last nonzero so far, 0 for none
-  for (int p = 1; p < 64; ++p) {
-    const int32_t v = blk[zigzag[p]];
-    int32_t code = 0, len = 0;
-    if (v != 0) {
-      const int s = sym_bit_size(v);
-      const int sym = (((p - prev - 1) & 15) << 4) | s;
-      len = lut[SYM_AC_LEN + 256 * t + sym] + s;
-      code = (lut[SYM_AC_CODE + 256 * t + sym] << s) | sym_value_bits(v, s);
-      prev = p;
-    } else if (((p - prev) & 15) == 0 && p < last) {
-      len = lut[SYM_ZRL_LEN + t];
-      code = lut[SYM_ZRL_CODE + t];
-    }
-    codes[p] = len > 0 ? code : 0;
-    lens[p] = len;
-  }
-  const int32_t eob_len = last != 63 ? lut[SYM_EOB_LEN + t] : 0;
-  codes[64] = eob_len > 0 ? lut[SYM_EOB_CODE + t] : 0;
-  lens[64] = eob_len;
+  return ((uint32_t)packed[code_at] & 0xffffu) | ((uint32_t)packed[len_at] << 16);
 }
 
-// Block b of the MCU sequence (per MCU: 1 or 4 luma blocks, then Cb, then
-// Cr): its component and its index among that component's blocks.
-__host__ __device__ __forceinline__ void symbol_block_source(int b, bool s420, int* comp,
-                                                             int* i) {
+// Position of the highest set bit of m, m != 0.
+__host__ __device__ __forceinline__ int sym_high_bit(uint32_t m) {
+#ifdef __CUDA_ARCH__
+  return 31 - __clz((int)m);
+#else
+  return 31 - __builtin_clz(m);
+#endif
+}
+
+// A block's nonzero AC positions are two 32-bit masks, as two warp ballots
+// give them: bit p of lo for zigzag positions 1..31 (bit 0 clear), bit p -
+// 32 of hi for positions 32..63. From the masks alone, with no walk over the
+// block: the last nonzero position of the block, and the last nonzero
+// position before p (0 for none), for p below 32 and from 32 on.
+__host__ __device__ __forceinline__ int symbol_last(uint32_t lo, uint32_t hi) {
+  return hi ? 32 + sym_high_bit(hi) : (lo ? sym_high_bit(lo) : 0);
+}
+
+__host__ __device__ __forceinline__ int symbol_prev_low(int p, uint32_t lo) {
+  const uint32_t below = lo & ((1u << p) - 1u);
+  return below ? sym_high_bit(below) : 0;
+}
+
+__host__ __device__ __forceinline__ int symbol_prev_high(int p, uint32_t lo, uint32_t hi) {
+  const uint32_t below = hi & ((1u << (p - 32)) - 1u);
+  return below ? 32 + sym_high_bit(below) : (lo ? sym_high_bit(lo) : 0);
+}
+
+struct SymSlot {
+  int32_t code, len;
+};
+
+// Slot p of a block, 0..63, without a branch: the DC slot (dc: v is the DC
+// difference, coded even when 0) and an AC slot (v the coefficient at
+// zigzag position p, prev the last nonzero position before p, last the
+// block's last) differ only in the table entry they read. t: 0 luma, 1
+// chroma; comb: the combined table.
+__host__ __device__ __forceinline__ SymSlot symbol_code(bool dc, int p, int prev, int last,
+                                                        int32_t v, int t, const uint32_t* comb) {
+  const bool coded = dc || v != 0;
+  const int s = sym_bit_size(v);
+  const int run = (p - prev - 1) & 15;
+  const int sym_at = dc ? SYMC_DC + 16 * t + s : SYMC_AC + 256 * t + ((run << 4) | s);
+  const bool zrl = !coded && ((p - prev) & 15) == 0 && p < last;
+  const uint32_t e = (coded || zrl) ? comb[coded ? sym_at : SYMC_ZRL + t] : 0u;
+  SymSlot out;
+  out.len = (coded || zrl) ? (int32_t)(e >> 16) + s : 0;
+  out.code = out.len > 0 ? (int32_t)(((e & 0xffffu) << s) | (uint32_t)sym_value_bits(v, s)) : 0;
+  return out;
+}
+
+// Slot 64, EOB, unless position 63 is nonzero.
+__host__ __device__ __forceinline__ SymSlot symbol_eob(uint32_t hi, int t, const uint32_t* comb) {
+  const uint32_t e = (hi >> 31) ? 0u : comb[SYMC_EOB + t];
+  SymSlot out;
+  out.len = (int32_t)(e >> 16);
+  out.code = out.len > 0 ? (int32_t)(e & 0xffffu) : 0;
+  return out;
+}
+
+// Slot p of a block, 0..64, from the masks and the slot's own value (the DC
+// difference for p = 0; not read for p = 64): the pieces above, as the
+// kernel's lanes put them together.
+__host__ __device__ __forceinline__ SymSlot symbol_slot(int p, uint32_t lo, uint32_t hi,
+                                                        int32_t v, int t, const uint32_t* comb) {
+  if (p == 64) return symbol_eob(hi, t, comb);
+  const int prev = p < 32 ? symbol_prev_low(p, lo) : symbol_prev_high(p, lo, hi);
+  return symbol_code(p == 0, p, prev, symbol_last(lo, hi), v, t, comb);
+}
+
+// The MCU sequence: per MCU 1 or 4 luma blocks, then Cb, then Cr.
+
+// n % d == 0 without a division (Lemire and Kaser's test): with magic =
+// floor((2^64 - 1) / d) + 1, d >= 1, it holds exactly when n * magic, modulo
+// 2^64, is at most magic - 1, for every 32-bit n.
+__host__ __device__ __forceinline__ uint64_t sym_divides_magic(uint32_t d) {
+  return 0xFFFFFFFFFFFFFFFFull / d + 1ull;
+}
+
+__host__ __device__ __forceinline__ bool sym_divides(uint32_t n, uint64_t magic) {
+  return (uint64_t)n * magic <= magic - 1ull;
+}
+
+// Block b of the MCU sequence of n_blocks blocks: its coefficients, its
+// component and the DC it is predicted from, that of the previous block of
+// the same component; the chain starts from 0 at each of n_groups equal
+// restart groups, or, with prev_dc (one group), from prev_dc[comp]: at a
+// component's first block of an MCU whose number the group's MCU count
+// divides (group_magic = sym_divides_magic(MCUs per group), which the caller
+// makes once). `last` is set where the block is its component's last.
+struct SymBlock {
+  const int16_t* blk;
+  int32_t pred;
+  int comp;
+  bool last;
+};
+
+__host__ __device__ __forceinline__ SymBlock symbol_block_locate(int b, int n_blocks, bool s420,
+                                                                 uint64_t group_magic,
+                                                                 const int16_t* y,
+                                                                 const int16_t* cb,
+                                                                 const int16_t* cr,
+                                                                 const int32_t* prev_dc) {
+  SymBlock out;
   const int per = s420 ? 6 : 3;
-  const int m = b / per, j = b - m * per;
   const int luma = s420 ? 4 : 1;
-  if (j < luma) {
-    *comp = 0;
-    *i = m * luma + j;
+  const int m = b / per, j = b - m * per;
+  out.comp = j < luma ? 0 : j - luma + 1;
+  const int k = out.comp == 0 ? luma : 1;  // the component's blocks per MCU
+  const int i = out.comp == 0 ? m * luma + j : m;
+  out.blk = (out.comp == 0 ? y : (out.comp == 1 ? cb : cr)) + (size_t)i * 64;
+  const bool first = (out.comp != 0 || j == 0) && sym_divides((uint32_t)m, group_magic);
+  if (first) {
+    out.pred = prev_dc != nullptr ? prev_dc[out.comp] : 0;
   } else {
-    *comp = j - luma + 1;
-    *i = m;
+    out.pred = out.blk[-64];
   }
-}
-
-// The 65 slots of block b of the MCU sequence of n_blocks blocks. The DC
-// difference is taken from the previous block of the same component; the
-// chain starts from 0 at each of n_groups equal restart groups, or, with
-// prev_dc (one group), from prev_dc[comp].
-__host__ __device__ __forceinline__ void symbol_block_at(int b, int n_blocks, bool s420,
-                                                         int n_groups, const int16_t* y,
-                                                         const int16_t* cb, const int16_t* cr,
-                                                         const int32_t* prev_dc,
-                                                         const int32_t* lut,
-                                                         const uint8_t* zigzag, int32_t* codes,
-                                                         int32_t* lens) {
-  int comp, i;
-  symbol_block_source(b, s420, &comp, &i);
-  const int n_comp_blocks = (n_blocks / (s420 ? 6 : 3)) * (comp == 0 && s420 ? 4 : 1);
-  const int group_len = n_comp_blocks / n_groups;
-  const int16_t* blk = (comp == 0 ? y : (comp == 1 ? cb : cr)) + (size_t)i * 64;
-  int32_t prev;
-  if (i % group_len == 0) {
-    prev = prev_dc != nullptr ? prev_dc[comp] : 0;
-  } else {
-    prev = blk[-64];
-  }
-  symbol_block(blk, (int32_t)blk[0] - prev, comp == 0 ? 0 : 1, lut, zigzag, codes, lens);
+  out.last = i == (n_blocks / per) * k - 1;
+  return out;
 }

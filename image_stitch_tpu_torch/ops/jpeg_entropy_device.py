@@ -10,7 +10,11 @@ Port of ``image_stitch_tpu/ops/jpeg_entropy_device.py``. Per band:
    (csrc/symbols.cu). Its plain version, ``symbol_streams_plain``: a
    gather for the zigzag order, a ``cummax`` for run lengths, LUT gathers
    for the codes.
-2. ``pack_merge`` (csrc/pack_merge.cu) packs each block's slots into
+2. ``kernels.group_layout`` (csrc/layout.cu) turns the blocks' bit counts,
+   which the symbol kernel gives, into each block's global start bit, the
+   groups' bit counts, the largest block and the carried stream's total.
+   Its plain version, ``group_layout_plain``: sums and cumulative sums.
+3. ``pack_merge`` (csrc/pack_merge.cu) packs each block's slots into
    words pre-aligned to the block's global start bit and adds them into
    the dense stream, in one launch.
 
@@ -37,7 +41,7 @@ from ..codecs.jpeg.huffman import BitPacker, HuffmanEncoder, interleave_mcus
 from ..codecs.jpeg.tables import ZIGZAG, huffman_lut
 from .counters import EncodeCounters
 from .device import jpeg_quantize, jpeg_quantize_420
-from .kernels import pack_merge, symbol_streams
+from .kernels import group_layout, pack_merge, symbol_streams
 
 # Packed-output budget in bits per pixel before the first band reports,
 # and its ceiling (the JAX package's values).
@@ -218,14 +222,13 @@ def _symbol_streams_flat(yb, cbb, crb, luts, n_groups: int, sampling: str = "444
     """Restart-group symbol streams: DC chains reset to 0 at every group
     boundary. Returns (codes, lens), each (B, 65) int32, B blocks in MCU
     scan order."""
-    return symbol_streams(yb, cbb, crb, luts, n_groups, sampling)
+    return symbol_streams(yb, cbb, crb, luts, n_groups, sampling)[:2]
 
 
 def _symbol_streams(yb, cbb, crb, luts, prev_dc, sampling: str = "444"):
     """Carried symbol streams: each component's DC chain continues from
     ``prev_dc`` ((3,) int32). Returns (codes, lens, new_dc)."""
-    codes, lens = symbol_streams(yb, cbb, crb, luts, 1, sampling, prev_dc=prev_dc)
-    new_dc = torch.stack([c[-1, 0].to(torch.int32) for c in (yb, cbb, crb)])
+    codes, lens, _bits, new_dc = symbol_streams(yb, cbb, crb, luts, 1, sampling, prev_dc=prev_dc)
     return codes, lens, new_dc
 
 
@@ -234,7 +237,7 @@ def _exclusive_cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# Pack and merge
+# Layout, pack and merge
 # --------------------------------------------------------------------------- #
 
 
@@ -244,27 +247,65 @@ def _group_layout(lens: torch.Tensor, n_groups: int):
     (starts (B,) int32 global start bits, group_bits (n_groups,) int32,
     block_bits (B,) int32)."""
     block_bits = lens.sum(dim=1, dtype=torch.int32)
+    starts, group_bits = _layout_from_bits(block_bits, n_groups)
+    return starts, group_bits, block_bits
+
+
+def _layout_from_bits(block_bits: torch.Tensor, n_groups: int):
     per_group = block_bits.reshape(n_groups, -1)
     group_bits = per_group.sum(dim=1, dtype=torch.int32)
     used = (group_bits + 31) >> 5
     dense_base = _exclusive_cumsum(used.to(torch.int64))
     starts = (dense_base[:, None] << 5) + _exclusive_cumsum(per_group.to(torch.int64), 1)
-    return starts.reshape(-1).to(torch.int32), group_bits, block_bits
+    return starts.reshape(-1).to(torch.int32), group_bits
+
+
+def group_layout_plain(block_bits: torch.Tensor, n_groups: int = 1,
+                       bit_base: torch.Tensor | None = None):
+    """Plain torch layout, the plain version of ``kernels.group_layout``:
+    the dense layout of restart groups, or, given ``bit_base``, the carried
+    stream's int64 cumulative sum from that bit. Returns (starts, group_bits,
+    max_block_bits, total_bits, next_base) as ``group_layout`` does."""
+    max_bits = block_bits.max()
+    if bit_base is None:
+        starts, group_bits = _layout_from_bits(block_bits, n_groups)
+        return starts, group_bits, max_bits, None, None
+    bits64 = block_bits.to(torch.int64)
+    starts64 = bit_base.to(torch.int64) + _exclusive_cumsum(bits64)
+    total_bits = bit_base.to(torch.int64) + bits64.sum()
+    group_bits = block_bits.sum(dim=0, keepdim=True, dtype=torch.int32)
+    return starts64.to(torch.int32), group_bits, max_bits, total_bits, total_bits % 8
 
 
 def pack_groups_from_blocks(yb, cbb, crb, luts: dict, n_groups: int, cap_words: int,
                             sampling: str = "444", local_words: int = LOCAL_WORDS):
     """Entropy-pack quantized blocks as ``n_groups`` restart groups, laid
     out densely in ``n_groups * cap_words`` words (the capacity is pooled).
+    On the card: symbol_streams, group_layout, the memset of the words and
+    pack_merge, and nothing between them.
 
     Returns (dense (n_groups * cap_words,) int32, group_bits (n_groups,)
     int32, max_block_bits () int32, max_overlap () int32). The merge has no
-    per-word overlap bound, so ``max_overlap`` is always 0."""
-    codes, lens = _symbol_streams_flat(yb, cbb, crb, luts, n_groups, sampling)
-    starts, group_bits, block_bits = _group_layout(lens, n_groups)
+    per-word overlap bound, so ``max_overlap`` is always 0, a host
+    constant."""
+    codes, lens, block_bits, _dc = symbol_streams(yb, cbb, crb, luts, n_groups, sampling)
+    starts, group_bits, max_bits, _, _ = group_layout(block_bits, n_groups)
     dense = pack_merge(codes, lens, starts, local_words, n_groups * cap_words)
-    max_overlap = torch.zeros((), dtype=torch.int32, device=dense.device)
-    return dense, group_bits, block_bits.max(), max_overlap
+    return dense, group_bits, max_bits, torch.zeros((), dtype=torch.int32)
+
+
+def _pack_carried(yb, cbb, crb, luts: dict, prev_dc: torch.Tensor, bit_base: torch.Tensor,
+                  cap_words: int, local_words: int, sampling: str):
+    """``entropy_pack_carried`` and the next band's ``bit_base``
+    (total_bits % 8), which the layout gives with the rest. On the card:
+    symbol_streams, group_layout, the memset of the words and pack_merge, and
+    nothing between them."""
+    codes, lens, block_bits, new_dc = symbol_streams(yb, cbb, crb, luts, 1, sampling,
+                                                     prev_dc=prev_dc)
+    starts, _group_bits, max_bits, total_bits, next_base = group_layout(
+        block_bits, 1, bit_base.to(torch.int64))
+    words = pack_merge(codes, lens, starts, local_words, cap_words)
+    return words, total_bits, new_dc, max_bits, next_base
 
 
 def entropy_pack_carried(yb, cbb, crb, luts: dict, prev_dc: torch.Tensor,
@@ -277,13 +318,8 @@ def entropy_pack_carried(yb, cbb, crb, luts: dict, prev_dc: torch.Tensor,
     Returns (words (cap_words,) int32, total_bits () int64 including
     bit_base, new_dc (3,) int32, max_block_bits () int32). The words equal
     the JAX package's ``entropy_pack_trace_v2`` up to ceil(total_bits/32)."""
-    codes, lens, new_dc = _symbol_streams(yb, cbb, crb, luts, prev_dc, sampling)
-    block_bits = lens.sum(dim=1, dtype=torch.int64)
-    starts64 = bit_base.to(torch.int64) + _exclusive_cumsum(block_bits)
-    total_bits = bit_base.to(torch.int64) + block_bits.sum()
-    starts = starts64.to(torch.int32)
-    words = pack_merge(codes, lens, starts, local_words, cap_words)
-    return words, total_bits, new_dc, block_bits.max().to(torch.int32)
+    return _pack_carried(yb, cbb, crb, luts, prev_dc, bit_base, cap_words, local_words,
+                         sampling)[:4]
 
 
 # --------------------------------------------------------------------------- #
@@ -389,12 +425,12 @@ class TorchJpegEncoder:
         n_pixels = dev_band.shape[0] * dev_band.shape[1]
         cap_words = max(64, (n_pixels * self._cap_bits_per_px + 31) // 32)
         blocks = self._quantize(dev_band)
-        words, total_bits, new_dc, max_bb = entropy_pack_carried(
+        words, total_bits, new_dc, max_bb, next_base = _pack_carried(
             *blocks, self._luts, prev_dc_in, self._bit_base, cap_words,
-            local_words=self._local_words, sampling=self._sampling,
+            self._local_words, self._sampling,
         )
         self._prev_dc = new_dc
-        self._bit_base = total_bits % 8
+        self._bit_base = next_base
         return ("carried", words, total_bits, cap_words, max_bb, blocks,
                 prev_dc_in, self._local_words)
 

@@ -20,7 +20,12 @@
 - ``symbol_streams`` (csrc/symbols.cu) replaces
   ``ops/jpeg_entropy_device.py::_symbol_streams_flat`` and
   ``_symbol_streams`` (plain: ``ops/jpeg_entropy_device.
-  symbol_streams_plain``).
+  symbol_streams_plain``);
+- ``group_layout`` (csrc/layout.cu) replaces the layout of
+  ``ops/jpeg_entropy_device.py::jpeg_pack_groups_from_blocks_trace`` and
+  ``entropy_pack_trace_v2``: the sums and cumulative sums between the symbol
+  streams and the pack (plain: ``ops/jpeg_entropy_device.
+  group_layout_plain``).
 
 The sources' head comments say what bounds each on the H100 and what the
 design does about it.
@@ -488,6 +493,24 @@ ycc_rgba.launches = 0
 # --------------------------------------------------------------------------- #
 
 
+# The kernels of csrc/fdct_quant.cu, by the variant number its launcher
+# takes: how a thread loads its 8 pixels.
+FDCT_VARIANTS = ("bytes", "rgb_vec8", "rgba_vec16")
+
+
+def fdct_variant(ch: int, address: int) -> int:
+    """The csrc/fdct_quant.cu kernel for a band of ``ch`` bytes a pixel that
+    starts at ``address`` (its rows are whole blocks of 8 pixels, so they
+    keep the band's alignment): two 16 B loads per 8 pixels for RGBA at a
+    16 B boundary, three 8 B loads for RGB at an 8 B boundary, else byte
+    loads. An index into ``FDCT_VARIANTS``."""
+    if ch == 4 and address % 16 == 0:
+        return 2
+    if ch == 3 and address % 8 == 0:
+        return 1
+    return 0
+
+
 def fdct_quant(band: torch.Tensor, luma_q: torch.Tensor, chroma_q: torch.Tensor,
                sampling: str = "444"):
     """YCbCr, forward DCT and quantization of an (H, W, C >= 3) uint8 band,
@@ -525,8 +548,8 @@ def fdct_quant(band: torch.Tensor, luma_q: torch.Tensor, chroma_q: torch.Tensor,
         return tuple(blocks)
     lib = load_cuda_kernels()
     _launch(lib.fdct_quant_launch, band.data_ptr(), h, w, ch, luma_q.data_ptr(),
-            chroma_q.data_ptr(), int(sampling == "420"), *(b.data_ptr() for b in blocks),
-            _stream(device))
+            chroma_q.data_ptr(), int(sampling == "420"), fdct_variant(ch, band.data_ptr()),
+            *(b.data_ptr() for b in blocks), _stream(device))
     fdct_quant.launches += 1
     return tuple(blocks)
 
@@ -540,14 +563,16 @@ SYMBOL_SLOTS = 65
 
 def symbol_streams(yb: torch.Tensor, cbb: torch.Tensor, crb: torch.Tensor, luts: dict,
                    n_groups: int = 1, sampling: str = "444",
-                   prev_dc: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                   prev_dc: torch.Tensor | None = None):
     """Huffman (code, length) slots of quantized blocks in MCU order.
 
     ``yb``, ``cbb``, ``crb``: (n, 64) int16 natural-order blocks (4n luma
     blocks for 4:2:0); ``luts``: ``jpeg_entropy_device.build_entropy_luts``;
     the DC chains restart from 0 at each of ``n_groups`` equal restart
     groups, or, given ``prev_dc`` ((3,) int32, one group), continue from it.
-    Returns (codes, lens), each (B, 65) int32: DC, 63 AC positions, EOB.
+    Returns (codes, lens, block_bits, last_dc): codes and lens (B, 65) int32
+    (DC, 63 AC positions, EOB); block_bits (B,) int32, each block's lengths
+    summed; last_dc (3,) int32, the DC of each component's last block.
     Launches csrc/symbols.cu for CUDA tensors;
     ``jpeg_entropy_device.symbol_streams_plain`` for CPU tensors."""
     device = yb.device
@@ -562,7 +587,7 @@ def symbol_streams(yb: torch.Tensor, cbb: torch.Tensor, crb: torch.Tensor, luts:
     if yb.shape[0] != luma * n or crb.shape[0] != n:
         raise ValueError(f"block counts {yb.shape[0]}, {n}, {crb.shape[0]} do not make "
                          f"{sampling} MCUs")
-    if n_groups < 1 or n % n_groups:
+    if n < 1 or n_groups < 1 or n % n_groups:
         raise ValueError(f"{n} MCUs do not make {n_groups} equal restart groups")
     if prev_dc is not None:
         _check(prev_dc, "prev_dc", torch.int32, 1, device)
@@ -571,7 +596,9 @@ def symbol_streams(yb: torch.Tensor, cbb: torch.Tensor, crb: torch.Tensor, luts:
     if device.type == "cpu":
         from .jpeg_entropy_device import symbol_streams_plain
 
-        return symbol_streams_plain(yb, cbb, crb, luts, n_groups, sampling, prev_dc)
+        codes, lens = symbol_streams_plain(yb, cbb, crb, luts, n_groups, sampling, prev_dc)
+        last_dc = torch.stack([c[-1, 0].to(torch.int32) for c in (yb, cbb, crb)])
+        return codes, lens, lens.sum(dim=1, dtype=torch.int32), last_dc
     if device.type != "cuda":
         raise ValueError(f"symbol_streams: unsupported device {device}")
     packed = luts["packed"]
@@ -581,14 +608,86 @@ def symbol_streams(yb: torch.Tensor, cbb: torch.Tensor, crb: torch.Tensor, luts:
     n_blocks = n * (luma + 2)
     codes = torch.empty((n_blocks, SYMBOL_SLOTS), dtype=torch.int32, device=device)
     lens = torch.empty((n_blocks, SYMBOL_SLOTS), dtype=torch.int32, device=device)
-    if n == 0:
-        return codes, lens
+    block_bits = torch.empty(n_blocks, dtype=torch.int32, device=device)
+    last_dc = torch.empty(3, dtype=torch.int32, device=device)
     lib = load_cuda_kernels()
     _launch(lib.symbol_streams_launch, yb.data_ptr(), cbb.data_ptr(), crb.data_ptr(), n,
             int(sampling == "420"), n_groups, 0 if prev_dc is None else prev_dc.data_ptr(),
-            packed.data_ptr(), codes.data_ptr(), lens.data_ptr(), _stream(device))
+            packed.data_ptr(), codes.data_ptr(), lens.data_ptr(), block_bits.data_ptr(),
+            last_dc.data_ptr(), _stream(device))
     symbol_streams.launches += 1
-    return codes, lens
+    return codes, lens, block_bits, last_dc
 
 
 symbol_streams.launches = 0
+
+# Blocks of one CTA of csrc/layout.cu (csrc/layout.cuh LAYOUT_CHUNK).
+LAYOUT_CHUNK = 1024
+# The layout kernel's scratch buffers, one per (card, stream): zeroed once,
+# when made; see csrc/layout.cu.
+_layout_scratch: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _layout_scratch_for(device: torch.device, stream: int,
+                        n_chunks: int) -> tuple[torch.Tensor, int]:
+    """The (scratch, capacity in chunks) of ``stream``, grown to hold
+    ``n_chunks``. A buffer that is too small is dropped for a new, zeroed
+    one: the launches that used it lie before on the same stream."""
+    key = (device.index, stream)
+    scratch = _layout_scratch.get(key)
+    if scratch is None or (scratch.numel() - 2) // 4 < n_chunks:
+        cap = max(1024, 1 << (n_chunks - 1).bit_length())
+        scratch = torch.zeros(2 + 4 * cap, dtype=torch.int32, device=device)
+        _layout_scratch[key] = scratch
+    return scratch, (scratch.numel() - 2) // 4
+
+
+def group_layout(block_bits: torch.Tensor, n_groups: int = 1,
+                 bit_base: torch.Tensor | None = None):
+    """Where each block starts in the packed stream, from the blocks' bit
+    counts.
+
+    ``block_bits`` (B,) int32 makes ``n_groups`` equal restart groups, group
+    g starting at word sum(ceil(group_bits[h] / 32) for h < g), its blocks
+    one after another; or, given ``bit_base`` (() int64 on the device, one
+    group), the carried stream, which starts at that bit. Returns (starts
+    (B,) int32 global start bits, group_bits (n_groups,) int32,
+    max_block_bits () int32, total_bits () int64 with ``bit_base``,
+    next_base () int64 = total_bits % 8); the last two are None without
+    ``bit_base``. Launches csrc/layout.cu for CUDA tensors, reading
+    ``bit_base`` on the card; ``jpeg_entropy_device.group_layout_plain`` for
+    CPU tensors."""
+    device = block_bits.device
+    _check(block_bits, "block_bits", torch.int32, 1, device)
+    n_blocks = block_bits.shape[0]
+    if n_blocks < 1 or n_groups < 1 or n_blocks % n_groups:
+        raise ValueError(f"{n_blocks} blocks do not make {n_groups} equal restart groups")
+    if bit_base is not None:
+        _check(bit_base, "bit_base", torch.int64, 0, device)
+        if n_groups != 1:
+            raise ValueError("bit_base: for one carried group")
+    if device.type == "cpu":
+        from .jpeg_entropy_device import group_layout_plain
+
+        return group_layout_plain(block_bits, n_groups, bit_base)
+    if device.type != "cuda":
+        raise ValueError(f"group_layout: unsupported device {device}")
+    starts = torch.empty(n_blocks, dtype=torch.int32, device=device)
+    group_bits = torch.empty(n_groups, dtype=torch.int32, device=device)
+    max_bits = torch.empty((), dtype=torch.int32, device=device)
+    totals = None if bit_base is None else torch.empty(2, dtype=torch.int64, device=device)
+    stream = _stream(device)
+    n_chunks = n_groups * -(-(n_blocks // n_groups) // LAYOUT_CHUNK)
+    scratch, cap = _layout_scratch_for(device, stream, n_chunks)
+    lib = load_cuda_kernels()
+    _launch(lib.group_layout_launch, block_bits.data_ptr(), n_blocks, n_groups,
+            0 if bit_base is None else bit_base.data_ptr(), scratch.data_ptr(), cap,
+            starts.data_ptr(), group_bits.data_ptr(), max_bits.data_ptr(),
+            0 if totals is None else totals.data_ptr(), stream)
+    group_layout.launches += 1
+    if totals is None:
+        return starts, group_bits, max_bits, None, None
+    return starts, group_bits, max_bits, totals[0], totals[1]
+
+
+group_layout.launches = 0

@@ -326,6 +326,57 @@ def test_fdct_quant_matches_plain(cuda, sampling, channels):
 
 
 @pytest.mark.parametrize("sampling", ["444", "420"])
+@pytest.mark.parametrize("channels,offset", [(3, 0), (3, 4), (4, 0), (4, 4), (5, 0)])
+@pytest.mark.parametrize("width", [8, 16, 24, 264, 8192])
+def test_fdct_quant_tiles_and_loads_match_plain(cuda, sampling, channels, offset, width):
+    """Widths of one block, off the 128-pixel tile and at the grid's full
+    width; pixel strides of 3, 4 and 5 bytes, the band at an aligned address
+    and 4 B past one, so that every load variant runs; pure blue (Cb = 256),
+    0 and 255 areas."""
+    from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
+    from image_stitch_tpu_torch.ops.jpeg_dct import band_to_blocks_islow, band_to_blocks_islow_420
+
+    if sampling == "420":
+        width = -(-width // 16) * 16
+    rng = np.random.default_rng(width + channels)
+    h = 32
+    data = rng.integers(0, 256, (h, width, channels), dtype=np.uint8)
+    data[:8, :, :3] = (0, 0, 255)
+    data[8:12] = 0
+    data[12:16] = 255
+    store = torch.empty(data.size + 16, dtype=torch.uint8, device=cuda)
+    band = store[offset : offset + data.size].view(data.shape)
+    band.copy_(torch.from_numpy(data))
+    want_variant = {(3, 0): "rgb_vec8", (4, 0): "rgba_vec16"}.get((channels, offset), "bytes")
+    assert K.FDCT_VARIANTS[K.fdct_variant(channels, band.data_ptr())] == want_variant
+    lq, cq = (torch.from_numpy(t.astype(np.int32)).to(cuda) for t in quality_scaled_tables(85))
+    plain = band_to_blocks_islow_420 if sampling == "420" else band_to_blocks_islow
+    got = K.fdct_quant(band, lq, cq, sampling)
+    want = plain(band, lq, cq)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+
+
+@pytest.mark.parametrize("quality", [1, 50, 100])
+def test_fdct_quant_at_the_tables_ends(cuda, quality):
+    """Quantizers of 255 (q1) and 1 (q100): the reciprocal's widest and
+    narrowest divisors, on random bytes and 0/255 checkers."""
+    from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
+    from image_stitch_tpu_torch.ops.jpeg_dct import band_to_blocks_islow
+
+    rng = np.random.default_rng(quality)
+    data = rng.integers(0, 256, (64, 512, 4), dtype=np.uint8)
+    data[:32] = ((np.indices((32, 512)).sum(0) & 1) * 255).astype(np.uint8)[..., None]
+    band = torch.from_numpy(data).to(cuda)
+    lq, cq = (torch.from_numpy(t.astype(np.int32)).to(cuda)
+              for t in quality_scaled_tables(quality))
+    got = K.fdct_quant(band, lq, cq, "444")
+    want = band_to_blocks_islow(band, lq, cq)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+
+
+@pytest.mark.parametrize("sampling", ["444", "420"])
 @pytest.mark.parametrize("n_groups,carried", [(1, False), (8, False), (1, True)])
 def test_symbol_streams_matches_plain(cuda, sampling, n_groups, carried):
     from image_stitch_tpu_torch.codecs.jpeg import tables as T
@@ -356,7 +407,129 @@ def test_symbol_streams_matches_plain(cuda, sampling, n_groups, carried):
     want = E.symbol_streams_plain(y, cb, cr, luts, n_groups, sampling, prev)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[1].sum(dim=1, dtype=torch.int32))
+    assert got[3].tolist() == [int(c[-1, 0]) for c in (y, cb, cr)]
     assert K.symbol_streams.launches == launches + 1
+
+
+def standard_luts(device):
+    from image_stitch_tpu_torch.codecs.jpeg import tables as T
+    from image_stitch_tpu_torch.ops import jpeg_entropy_device as E
+
+    tables = [T.build_huffman_codes(bits, vals) for bits, vals in (
+        (T.STD_DC_LUMA_BITS, T.STD_DC_LUMA_VALS), (T.STD_AC_LUMA_BITS, T.STD_AC_LUMA_VALS),
+        (T.STD_DC_CHROMA_BITS, T.STD_DC_CHROMA_VALS), (T.STD_AC_CHROMA_BITS, T.STD_AC_CHROMA_VALS))]
+    return E.build_entropy_luts(*tables, device)
+
+
+@pytest.mark.parametrize("sampling", ["444", "420"])
+@pytest.mark.parametrize("n_mcu,n_groups,carried", [(1, 1, False), (3, 3, True), (1037, 1, True),
+                                                   (1037, 17, False), (4096, 32, False)])
+def test_symbol_streams_edges_match_plain(cuda, sampling, n_mcu, n_groups, carried):
+    """Block counts that are no multiple of the CTA's 8 warps, with every
+    edge of the mask arithmetic among the blocks: all zeros, 63 nonzeros,
+    runs of 15, 16, 17, 32 and 48 zeros, runs to position 63, the ballots'
+    word boundary, +-32767."""
+    from image_stitch_tpu_torch.codecs.jpeg import tables as T
+    from image_stitch_tpu_torch.ops import jpeg_entropy_device as E
+
+    rng = np.random.default_rng(n_mcu)
+    luma = 4 if sampling == "420" else 1
+    carried = carried and n_groups == 1
+
+    def blocks(cnt):
+        zz = rng.integers(-60, 61, (cnt, 64)) * (rng.random((cnt, 64)) < 0.25)
+        zz[:, 0] = rng.integers(-1023, 1024, cnt)
+        edges = [np.zeros(64), np.r_[7, np.arange(1, 64)]]
+        for run in (15, 16, 17, 32, 48):
+            row = np.zeros(64)
+            row[1], row[2 + run] = 3, -5
+            edges.append(row)
+        for first in (46, 47):
+            row = np.zeros(64)
+            row[first], row[63] = 1, -1
+            edges.append(row)
+        edges.append(np.r_[np.zeros(31), 4, -4, np.zeros(31)])
+        edges.append(np.r_[0, 32767, -32767, np.zeros(60), 32767])
+        for i, row in enumerate(edges):
+            zz[i::13, 1:] = row[1:]
+        nat = np.zeros_like(zz)
+        nat[:, T.ZIGZAG] = zz
+        return torch.from_numpy(nat.astype(np.int16)).to(cuda)
+
+    y, cb, cr = blocks(luma * n_mcu), blocks(n_mcu), blocks(n_mcu)
+    luts = standard_luts(cuda)
+    prev = torch.tensor([517, -66, 31], dtype=torch.int32, device=cuda) if carried else None
+    got = K.symbol_streams(y, cb, cr, luts, n_groups, sampling, prev)
+    want = E.symbol_streams_plain(y, cb, cr, luts, n_groups, sampling, prev)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[1].sum(dim=1, dtype=torch.int32))
+    assert got[3].tolist() == [int(c[-1, 0]) for c in (y, cb, cr)]
+
+
+@pytest.mark.parametrize("group_len,n_groups,bit_base", [
+    (3, 1, None), (3, 7, None), (18, 4, None), (45, 12, None), (42, 32, None), (1023, 3, None),
+    (1024, 2, None), (1025, 2, None), (2049, 3, None), (3072, 32, None), (8192, 12, None),
+    (98304, 1, None), (1, 2000, None), (100, 333, None), (3, 1, 1), (1030, 1, 7), (5000, 1, 0),
+    (98304, 1, 5), (147456, 1, 3)])
+def test_group_layout_matches_plain(cuda, group_len, n_groups, bit_base):
+    """Restart groups and the carried stream: group lengths off the warp
+    and off the 1024-block chunk, more chunks than one wave of CTAs, blocks
+    over the 768-bit budget; run three times on one stream, since a launch
+    leaves the ticket counter for the next."""
+    from image_stitch_tpu_torch.ops import jpeg_entropy_device as E
+
+    rng = np.random.default_rng(group_len + n_groups)
+    for rep in range(3):
+        bits = rng.integers(4, 400, group_len * n_groups)
+        bits[rng.random(bits.size) < 0.02] = 1500 + rep
+        bits = torch.from_numpy(bits.astype(np.int32)).to(cuda)
+        base = None if bit_base is None else torch.tensor(bit_base, device=cuda)
+        launches = K.group_layout.launches
+        got = K.group_layout(bits, n_groups, base)
+        want = E.group_layout_plain(bits, n_groups, base)
+        torch.cuda.synchronize()
+        assert K.group_layout.launches == launches + 1
+        for g, w in zip(got, want, strict=True):
+            assert (g is None and w is None) or (g.dtype == w.dtype and torch.equal(g, w))
+
+
+def test_group_layout_on_two_streams(cuda):
+    """Each stream has its own scratch buffer: launches on two streams do
+    not share a ticket counter."""
+    from image_stitch_tpu_torch.ops import jpeg_entropy_device as E
+
+    bits = torch.from_numpy(np.random.default_rng(1).integers(0, 900, 40000).astype(np.int32))
+    bits = bits.to(cuda)
+    want = E.group_layout_plain(bits, 8)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(cuda)
+    outs = []
+    for _ in range(4):
+        outs.append(K.group_layout(bits, 8))
+        with torch.cuda.stream(side):
+            outs.append(K.group_layout(bits, 8))
+    torch.cuda.synchronize()
+    for got in outs:
+        assert all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
+
+
+@pytest.mark.parametrize("sampling,ri", [("444", 0), ("444", 1), ("420", 2)])
+def test_band_packs_in_three_launches(cuda, sampling, ri):
+    """A band through the encoder: symbol_streams, group_layout and
+    pack_merge launch once each per dispatch, and the bytes are the CPU
+    path's."""
+    rng = np.random.default_rng(ri)
+    tiles = [png_from_array(rng.integers(0, 256, (80, 96, 4), dtype=np.uint8)) for _ in range(2)]
+    opts = {"inputs": tiles, "layout": {"columns": 2}, "outputFormat": "jpeg",
+            "jpegSampling": sampling, "jpegRestartIntervalRows": ri, "bandHeight": 32}
+    wrappers = (K.symbol_streams, K.group_layout, K.pack_merge)
+    before = [w.launches for w in wrappers]
+    got = image_stitch_tpu_torch.concat_to_buffer(opts, device=cuda)
+    counts = [w.launches - b for w, b in zip(wrappers, before)]
+    assert counts[0] == counts[1] == counts[2] > 0
+    assert got == image_stitch_tpu_torch.concat_to_buffer(opts, device="cpu")
 
 
 @pytest.mark.parametrize("ri,sampling", [(1, "420"), (0, "444")])

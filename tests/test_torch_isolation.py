@@ -47,10 +47,46 @@ def test_file_imports_nothing_of_the_jax_package(rel):
 
 def test_port_files_are_listed():
     """The parametrisation above covers the whole package, copies included."""
-    for rel in ("image_stitch_tpu_torch/core.py", "image_stitch_tpu_torch/native/__init__.py",
+    for rel in ("image_stitch_tpu_torch/core.py", "image_stitch_tpu_torch/api.py",
+                "image_stitch_tpu_torch/native/__init__.py",
                 "image_stitch_tpu_torch/codecs/png/decoder.py",
                 "image_stitch_tpu_torch/codecs/jpeg/owned_decoder.py"):
         assert rel in FILES
+
+
+# The kernels' sources: each .cu with the .cuh whose bodies the host shim
+# shares.
+KERNEL_SOURCES = ("composite", "fdct_quant", "filter", "idct", "layout", "pack_merge", "symbols",
+                  "ycc")
+
+
+def test_kernel_sources_are_listed():
+    """csrc/ holds exactly these kernels (the build and the SASS report take
+    every *.cu there), each with a header that host_shim.cpp includes; no
+    source includes a header from outside csrc/ and the toolkit."""
+    csrc = os.path.join(REPO, PORT, "csrc")
+    assert sorted(os.listdir(csrc)) == sorted(
+        [f"{k}.cu" for k in KERNEL_SOURCES] + [f"{k}.cuh" for k in KERNEL_SOURCES]
+        + ["host_shim.cpp"])
+    with open(os.path.join(csrc, "host_shim.cpp")) as f:
+        shim = f.read()
+    for k in KERNEL_SOURCES:
+        assert f'#include "{k}.cuh"' in shim, k
+        with open(os.path.join(csrc, f"{k}.cu")) as f:
+            quoted = [line.split('"')[1] for line in f if line.startswith('#include "')]
+        assert quoted and all(q.endswith(".cuh") and q[:-4] in KERNEL_SOURCES for q in quoted), k
+
+
+def test_api_tests_import_both_packages_and_the_port_neither():
+    """Only tests import both packages: tests/test_torch_api.py does, and
+    the port's api.py, which it tests, imports neither jax nor the JAX
+    package (it is in FILES above)."""
+    with open(os.path.join(REPO, "tests", "test_torch_api.py")) as f:
+        tree = ast.parse(f.read())
+    tops = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import)
+            for a in n.names}
+    assert {"image_stitch_tpu", "image_stitch_tpu_torch"} <= tops
+    assert f"{PORT}/api.py" in FILES
 
 
 RUN = """

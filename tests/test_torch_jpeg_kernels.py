@@ -1,6 +1,6 @@
 """The JPEG kernels' own arithmetic against their plain torch versions.
 
-csrc/idct.cuh, ycc.cuh, fdct_quant.cuh and symbols.cuh, compiled by g++
+csrc/idct.cuh, ycc.cuh, fdct_quant.cuh, symbols.cuh and layout.cuh, compiled by g++
 into the serial host shim (csrc/host_shim.cpp), run the per-block and
 per-pixel bodies that the CUDA kernels run, split as the kernels split
 them: ``idct_dequant_host`` runs the 8 column passes of a block into a
@@ -215,6 +215,82 @@ def test_quantizer_at_every_rounding_edge():
     want = quantize_islow(torch.from_numpy(c), torch.from_numpy(q)).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(np.abs(got[d == 0]), k[d == 0] + 1)
+    # The kernel's quantizer, by reciprocal, at the same edges.
+    recip = np.zeros(c.shape, np.int16)
+    load_host_shim().fdct_quantize_recip_host(_ptr(c), _ptr(q), _ptr(recip), c.size)
+    np.testing.assert_array_equal(recip, want)
+
+
+def shim_quantize(c: np.ndarray, q: np.ndarray):
+    """(exact division, reciprocal) quantizers of the shim on (c, q) pairs."""
+    c, q = np.ascontiguousarray(c, np.int32), np.ascontiguousarray(q, np.int32)
+    exact, recip = np.zeros(c.shape, np.int16), np.zeros(c.shape, np.int16)
+    load_host_shim().fdct_quantize_host(_ptr(c), _ptr(q), _ptr(exact), c.size)
+    load_host_shim().fdct_quantize_recip_host(_ptr(c), _ptr(q), _ptr(recip), c.size)
+    return exact, recip
+
+
+@pytest.mark.parametrize("sign", [1, -1])
+def test_reciprocal_quantizer_at_every_multiple_of_every_q(sign):
+    """|c| + 4q one below, at and one above every multiple of 8q that the
+    FDCT can reach (|c| < 2^15, its outputs stay below 2^14) for every q of
+    1..255: the reciprocal's one-sided correction against the division."""
+    qs, cs = [], []
+    for q in range(1, 256):
+        mult = np.arange(1, (1 << 15) // (8 * q) + 2, dtype=np.int64) * 8 * q
+        mag = (mult[:, None] + np.array([-1, 0, 1])[None, :] - 4 * q).reshape(-1)
+        mag = mag[(mag >= 0) & (mag < 1 << 15)]
+        cs.append(sign * mag)
+        qs.append(np.full(mag.shape, q))
+    c, q = np.concatenate(cs).astype(np.int32), np.concatenate(qs).astype(np.int32)
+    exact, recip = shim_quantize(c, q)
+    np.testing.assert_array_equal(recip, exact)
+    want = quantize_islow(torch.from_numpy(c), torch.from_numpy(q)).numpy()
+    np.testing.assert_array_equal(recip, want)
+
+
+def test_reciprocal_quantizer_exhaustive_for_the_quality_tables():
+    """Every coefficient of -2^15 .. 2^15 against every quantizer that
+    quality_scaled_tables emits at q 1, 10, 50, 85 and 100, and the 16-bit
+    table's ends."""
+    qvals = sorted({int(v) for quality in (1, 10, 50, 85, 100)
+                    for t in quality_scaled_tables(quality) for v in t.reshape(-1)}
+                   | {1, 2, 3, 255, 256, 4095, 65535})
+    assert min(qvals) >= 1
+    c = np.arange(-(1 << 15), (1 << 15) + 1, dtype=np.int32)
+    for qv in qvals:
+        exact, recip = shim_quantize(c, np.full(c.shape, qv, np.int32))
+        np.testing.assert_array_equal(recip, exact, err_msg=f"q={qv}")
+
+
+@pytest.mark.parametrize("sampling", ["444", "420"])
+@pytest.mark.parametrize("channels", [3, 4, 5])
+@pytest.mark.parametrize("width", [16, 32, 48, 272, 400])
+def test_fdct_split_matches_plain_at_ragged_widths(sampling, channels, width):
+    """The row and column tasks of the shim (8 per block, as the card's
+    threads) against band_to_blocks_islow[_420]: widths of one block or MCU,
+    off the kernel's 128-pixel tile (272 = 2 tiles and 16 pixels, 400), a
+    pixel stride of 3, 4 and 5 bytes; random bytes with pure blue, 0 and 255
+    areas."""
+    rng = np.random.default_rng(width + channels)
+    h = 32
+    band = rng.integers(0, 256, (h, width, channels), dtype=np.uint8)
+    band[:8, :, :3] = (0, 0, 255)  # Cb = 256
+    band[8:12] = 0
+    band[12:16] = 255
+    lq, cq = (t.astype(np.int32) for t in quality_scaled_tables(85))
+    got = shim_fdct(band, lq, cq, sampling)
+    want = K.fdct_quant(torch.from_numpy(band), torch.from_numpy(lq), torch.from_numpy(cq),
+                        sampling)
+    for g, t in zip(got, want):
+        np.testing.assert_array_equal(g, t.numpy())
+
+
+def test_fdct_variant_follows_stride_and_alignment():
+    assert K.FDCT_VARIANTS == ("bytes", "rgb_vec8", "rgba_vec16")
+    assert K.fdct_variant(4, 4096) == 2 and K.fdct_variant(4, 4100) == 0
+    assert K.fdct_variant(3, 4096) == 1 and K.fdct_variant(3, 4104) == 1
+    assert K.fdct_variant(3, 4100) == 0 and K.fdct_variant(5, 4096) == 0
 
 
 # --------------------------------------------------------------------------- #
@@ -261,11 +337,13 @@ def shim_symbols(y, cb, cr, sampling, n_groups, prev_dc=None):
     lens = np.zeros((b, 65), np.int32)
     luts = np.ascontiguousarray(LUTS["packed"].numpy())
     pd = None if prev_dc is None else np.ascontiguousarray(prev_dc, np.int32)
+    bits = np.zeros(b, np.int32)
+    last_dc = np.zeros(3, np.int32)
     load_host_shim().symbol_streams_host(_ptr(y), _ptr(cb), _ptr(cr), n,
                                          int(sampling == "420"), n_groups,
                                          None if pd is None else _ptr(pd), _ptr(luts),
-                                         _ptr(codes), _ptr(lens))
-    return codes, lens
+                                         _ptr(codes), _ptr(lens), _ptr(bits), _ptr(last_dc))
+    return codes, lens, bits, last_dc
 
 
 @pytest.mark.parametrize("sampling", ["444", "420"])
@@ -278,15 +356,97 @@ def test_symbol_bodies_match_plain(sampling, n_groups, carried):
     luma = 4 if sampling == "420" else 1
     y, cb, cr = (edge_blocks(rng, cnt) for cnt in (luma * n, n, n))
     prev_dc = np.array([300, -41, 77], np.int32) if carried else None
-    got_c, got_l = shim_symbols(y, cb, cr, sampling, n_groups, prev_dc)
-    want_c, want_l = K.symbol_streams(
+    got_c, got_l, got_bits, got_dc = shim_symbols(y, cb, cr, sampling, n_groups, prev_dc)
+    want_c, want_l, want_bits, want_dc = K.symbol_streams(
         *(torch.from_numpy(a) for a in (y, cb, cr)), LUTS, n_groups, sampling,
         None if prev_dc is None else torch.from_numpy(prev_dc))
     np.testing.assert_array_equal(got_l, want_l.numpy())
     np.testing.assert_array_equal(got_c, want_c.numpy())
+    np.testing.assert_array_equal(got_bits, got_l.sum(axis=1))
+    np.testing.assert_array_equal(got_bits, want_bits.numpy())
+    np.testing.assert_array_equal(got_dc, want_dc.numpy())
+    assert got_dc.tolist() == [int(a[-1, 0]) for a in (y, cb, cr)]
     # The edges are there: ZRL slots, EOB dropped after a nonzero at 63.
     zrl_len = int(LUTS["zrl_len"][0])
     assert (got_l[:, 1:64] == zrl_len).any() and (got_l[:, 64] == 0).any()
+
+
+def zigzag_blocks(rows) -> np.ndarray:
+    """Blocks given in zigzag order -> (n, 64) int16 natural order."""
+    zz = np.asarray(rows, np.int64).reshape(-1, 64)
+    nat = np.zeros_like(zz)
+    nat[:, ZIGZAG] = zz
+    return nat.astype(np.int16)
+
+
+def run_block(gap: int, first: int = 1, end63: bool = False) -> np.ndarray:
+    """A nonzero at zigzag position ``first``, ``gap`` zeros, a nonzero;
+    with ``end63`` another at position 63."""
+    row = np.zeros(64, np.int64)
+    row[first] = 2
+    if first + gap + 1 < 64:
+        row[first + gap + 1] = -3
+    if end63:
+        row[63] = 1
+    return row
+
+
+SLOT_EDGES = {
+    "all_zero": np.zeros(64, np.int64),
+    "dc_only": np.r_[-1024, np.zeros(63, np.int64)],
+    "63_nonzeros": np.r_[5, np.arange(1, 64) * np.where(np.arange(63) % 2, -1, 1)],
+    "run15": run_block(15), "run16": run_block(16), "run17": run_block(17),
+    "run32": run_block(32), "run48": run_block(48),
+    "run15_to_63": run_block(15, first=47), "run16_to_63": run_block(16, first=46),
+    "run48_then_63": run_block(48, end63=True),
+    "only_63": np.r_[np.zeros(63, np.int64), 9],
+    "only_16": np.r_[np.zeros(16, np.int64), 1, np.zeros(47, np.int64)],
+    "only_17_and_33": run_block(15, first=17),
+    "zeros_after_2": np.r_[0, 0, 1, np.zeros(61, np.int64)],
+    "int16_extremes": np.r_[32767, -32767, 32767, np.zeros(59, np.int64), -32767, 32767],
+    "word_boundary_31_32": np.r_[np.zeros(31, np.int64), 4, -4, np.zeros(31, np.int64)],
+    "word_boundary_32_only": np.r_[np.zeros(32, np.int64), 1, np.zeros(31, np.int64)],
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLOT_EDGES))
+@pytest.mark.parametrize("sampling", ["444", "420"])
+def test_symbol_slot_edges_match_plain(name, sampling):
+    """Each edge of the mask arithmetic in every block of two MCUs, beside
+    a full block, so that luma and chroma tables and every DC predecessor
+    meet it: zero runs of 15, 16, 17, 32 and 48, runs that end at position
+    63, a lone nonzero at 16, 32 or 63, the ballots' word boundary (31 | 32),
+    and coefficients of +-32767, the largest the tables index (size
+    category 15; -32768 would be 16)."""
+    luma = 4 if sampling == "420" else 1
+    edge, full = SLOT_EDGES[name], SLOT_EDGES["63_nonzeros"]
+    y = zigzag_blocks([edge, full] * luma)
+    cb = zigzag_blocks([edge, full])
+    cr = zigzag_blocks([full, edge])
+    got = shim_symbols(y, cb, cr, sampling, 1)
+    want = K.symbol_streams(*(torch.from_numpy(a) for a in (y, cb, cr)), LUTS, 1, sampling)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    np.testing.assert_array_equal(got[2], got[1].sum(axis=1))
+
+
+def test_divisibility_test_matches_modulo():
+    """The kernel's "first block of a restart group" test, n % d == 0 by a
+    multiply and a compare, for every n up to 70,000 against small and
+    awkward d, and random 32-bit pairs with multiples among them."""
+    rng = np.random.default_rng(0)
+    ds = np.array([1, 2, 3, 5, 7, 64, 1000, 1024, 4095, 32768, 65537, 2**31 - 1, 2**32 - 1],
+                  np.uint64)
+    n = np.concatenate([np.tile(np.arange(70000, dtype=np.uint64), len(ds)),
+                        rng.integers(0, 2**32, 200000, dtype=np.uint64)])
+    d = np.concatenate([np.repeat(ds, 70000), rng.integers(1, 2**32, 200000, dtype=np.uint64)])
+    mult = rng.integers(1, 2**16, 50000, dtype=np.uint64)
+    d2 = rng.integers(1, 2**16, 50000, dtype=np.uint64)
+    n, d = np.concatenate([n, mult * d2]), np.concatenate([d, d2])
+    n32, d32 = np.ascontiguousarray(n, np.uint32), np.ascontiguousarray(d, np.uint32)
+    got = np.zeros(n.shape, np.uint8)
+    load_host_shim().sym_divides_host(_ptr(n32), _ptr(d32), _ptr(got), n.size)
+    np.testing.assert_array_equal(got.astype(bool), n % d == 0)
 
 
 def test_symbol_streams_match_the_encoder_stages():
@@ -312,6 +472,165 @@ def test_packed_luts_follow_the_kernel_layout():
     for name, off in offsets.items():
         t = LUTS[name].reshape(-1)
         assert torch.equal(packed[off : off + t.numel()], t)
+
+
+# --------------------------------------------------------------------------- #
+# group_layout
+# --------------------------------------------------------------------------- #
+
+
+def shim_layout(block_bits: np.ndarray, n_groups: int, bit_base=None):
+    """(starts, group_bits, max_bits, total_bits, next_base) of the shim,
+    which cuts the band into the card's chunks."""
+    bits = np.ascontiguousarray(block_bits, np.int32)
+    starts = np.full(bits.shape, -1, np.int32)
+    group_bits = np.full(n_groups, -1, np.int32)
+    max_bits = np.full(1, -1, np.int32)
+    totals = np.full(2, -1, np.int64)
+    base = None if bit_base is None else np.array([bit_base], np.int64)
+    load_host_shim().group_layout_host(
+        _ptr(bits), bits.size, n_groups, None if base is None else _ptr(base), _ptr(starts),
+        _ptr(group_bits), _ptr(max_bits), None if base is None else _ptr(totals))
+    if base is None:
+        return starts, group_bits, int(max_bits[0]), None, None
+    return starts, group_bits, int(max_bits[0]), int(totals[0]), int(totals[1])
+
+
+def check_layout(block_bits: np.ndarray, n_groups: int, bit_base=None):
+    """The shim and the wrapper's CPU branch against the encoder's torch
+    code: ``_group_layout`` over lengths with these sums, or the carried
+    stream's int64 cumulative sum."""
+    bits_t = torch.from_numpy(np.ascontiguousarray(block_bits, np.int32))
+    base_t = None if bit_base is None else torch.tensor(bit_base, dtype=torch.int64)
+    got = shim_layout(block_bits, n_groups, bit_base)
+    plain = K.group_layout(bits_t, n_groups, base_t)
+    if bit_base is None:
+        lens = torch.zeros((bits_t.shape[0], 65), dtype=torch.int32)
+        lens[:, 0] = bits_t // 2
+        lens[:, 64] = bits_t - bits_t // 2
+        want_starts, want_groups, want_bits = E._group_layout(lens, n_groups)
+        assert torch.equal(want_bits, bits_t)
+        assert got[3] is None and got[4] is None and plain[3] is None and plain[4] is None
+    else:
+        b64 = bits_t.to(torch.int64)
+        want_starts = (base_t + torch.cumsum(b64, 0) - b64).to(torch.int32)
+        total = int(base_t + b64.sum())
+        want_groups = bits_t.sum(dim=0, keepdim=True, dtype=torch.int32)
+        assert got[3] == int(plain[3]) == total
+        assert got[4] == int(plain[4]) == total % 8
+    np.testing.assert_array_equal(got[0], want_starts.numpy())
+    np.testing.assert_array_equal(got[1], want_groups.numpy())
+    assert got[2] == int(bits_t.max()) == int(plain[2])
+    assert torch.equal(plain[0], want_starts) and torch.equal(plain[1], want_groups)
+    assert plain[0].dtype == plain[1].dtype == plain[2].dtype == torch.int32
+
+
+def typical_bits(rng, n: int) -> np.ndarray:
+    """Block bit counts as the encoder sees them: 4 bits (an all-zero block)
+    to a few hundred, one block in 50 over the 768-bit budget."""
+    bits = rng.integers(4, 400, n)
+    bits[rng.random(n) < 0.02] = rng.integers(769, 1700, 1)
+    return bits.astype(np.int32)
+
+
+# (blocks per group, groups): group lengths that are no multiple of 32 or of
+# the 1024-block chunk, one short group (the tail dispatch), 4:2:0 groups of
+# 6 blocks per MCU, groups of exactly one and two chunks and one block more,
+# and a full-width 4:4:4 band as 1, 4, 12 and 32 groups.
+LAYOUT_GROUPS = [(3, 1), (3, 7), (18, 4), (45, 12), (6 * 7, 32), (1023, 3), (1024, 2),
+                 (1025, 2), (2048, 1), (2049, 3), (3072, 32), (8192, 12), (24576, 4),
+                 (98304, 1), (100, 333), (1, 1), (1, 2000)]
+
+
+@pytest.mark.parametrize("group_len,n_groups", LAYOUT_GROUPS)
+def test_layout_chunks_match_plain_for_groups(group_len, n_groups):
+    rng = np.random.default_rng(group_len + n_groups)
+    check_layout(typical_bits(rng, group_len * n_groups), n_groups)
+
+
+@pytest.mark.parametrize("n_blocks", [3, 1024, 1030, 5000, 98304])
+@pytest.mark.parametrize("bit_base", [0, 1, 7])
+def test_layout_chunks_match_plain_for_the_carried_stream(n_blocks, bit_base):
+    rng = np.random.default_rng(n_blocks + bit_base)
+    check_layout(typical_bits(rng, n_blocks), 1, bit_base)
+
+
+@pytest.mark.parametrize("bit_base", range(8))
+def test_layout_carries_every_bit_base(bit_base):
+    check_layout(typical_bits(np.random.default_rng(bit_base), 2500), 1, bit_base)
+
+
+def test_layout_groups_of_whole_words_and_one_bit_more():
+    """Groups whose bits are an exact multiple of 32 take no word more; one
+    bit more takes one."""
+    bits = np.full(6 * 40, 16, np.int32)  # 6 groups of 640 bits = 20 words
+    starts, group_bits, *_ = shim_layout(bits, 6)
+    assert starts[40] == 640 and group_bits.tolist() == [640] * 6
+    check_layout(bits, 6)
+    bits[39] = 17
+    starts, group_bits, *_ = shim_layout(bits, 6)
+    assert starts[40] == 672 and group_bits[0] == 641
+    check_layout(bits, 6)
+    check_layout(np.zeros(12, np.int32), 4)  # empty groups take no word
+
+
+def test_layout_counts_over_budget_blocks_in_full():
+    """A block past the 768-bit budget moves its successors by all of its
+    bits, though pack_merge clips its words."""
+    bits = np.full(3000, 100, np.int32)
+    bits[[0, 1023, 1024, 2999]] = [5000, 1700, 769, 900]
+    starts, _, max_bits, *_ = shim_layout(bits, 1)
+    assert starts[1] == 5000 and starts[1025] - starts[1024] == 769 and max_bits == 5000
+    check_layout(bits, 1)
+    check_layout(bits, 3)
+    check_layout(bits, 1, 5)
+
+
+def test_layout_sums_past_int32_wrap_as_torch_does():
+    """2^31 bits and more in a band: the plain version's int32 casts wrap,
+    and the total stays a 64-bit sum."""
+    bits = np.full(4096, (1 << 20) + 3, np.int32)
+    check_layout(bits, 1, 3)
+    check_layout(bits, 2)
+
+
+def test_layout_hypothesis_drawn_bits_and_groups():
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+
+    @settings(max_examples=60, deadline=None, derandomize=True)
+    @given(st.data())
+    def run(data):
+        n_groups = data.draw(st.integers(1, 40))
+        group_len = data.draw(st.one_of(st.integers(1, 64), st.integers(1000, 2100)))
+        seed = data.draw(st.integers(0, 2**32 - 1))
+        top = data.draw(st.sampled_from([1, 33, 700, 4000]))
+        bits = np.random.default_rng(seed).integers(0, top + 1, n_groups * group_len)
+        carried = n_groups == 1 and data.draw(st.booleans())
+        check_layout(bits.astype(np.int32), n_groups,
+                     data.draw(st.integers(0, 7)) if carried else None)
+
+    run()
+
+
+def test_layout_wrapper_checks_inputs_and_counts_only_launches():
+    bits = torch.arange(12, dtype=torch.int32)
+    before = K.group_layout.launches
+    K.group_layout(bits, 4)
+    K.group_layout(bits, 1, torch.tensor(3))
+    assert K.group_layout.launches == before
+    with pytest.raises(TypeError):
+        K.group_layout(bits.to(torch.int64), 4)
+    with pytest.raises(ValueError):
+        K.group_layout(bits, 5)  # 12 blocks, 5 groups
+    with pytest.raises(ValueError):
+        K.group_layout(bits[:0], 1)
+    with pytest.raises(ValueError):
+        K.group_layout(bits, 4, torch.tensor(3))  # a bit base with restart groups
+    with pytest.raises(TypeError):
+        K.group_layout(bits, 1, torch.tensor(3, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        K.group_layout(bits, 1, torch.tensor([3]))
 
 
 # --------------------------------------------------------------------------- #
