@@ -30,7 +30,12 @@ path. Phases, each printing its lines before the last:
    int16 blocks up to +-2^15 with the q50 and q100 tables at K = 8, 24
    and 64 and all-zero AC columns, ycc_rgba on 4:4:4, h2v1, h2v2 and gray
    windows with comp_w of 2 and 3 at band and image edges into a wider
-   band at an x offset, fdct_quant on a 256 x 8192 band of random bytes, a
+   band at an x offset (each a batch of one), and both batched, one launch
+   for a band, against their batched plain versions: on a band of 8 4:2:0
+   tiles at the main path's shape (24 jobs, 51,200 blocks, both column
+   passes) and on the CPU tests' mixed tables (every sampling, K 8 to 64,
+   x0 % 4 of 0 to 3, ragged widths; every store variant of
+   ``YCC_VARIANTS`` must run); fdct_quant on a 256 x 8192 band of random bytes, a
    saturated-blue band (Cb = 256) and a 4:2:0 band, and at widths 8, 16,
    24, 264 and 8192 with pixel strides of 3, 4 and 5 bytes at aligned and
    unaligned addresses (every load variant of ``FDCT_VARIANTS`` must run)
@@ -58,11 +63,12 @@ path. Phases, each printing its lines before the last:
    - JPEG tiles: the same 64 tiles made JPEGs by the port's own encoder at
      q90 4:2:0, as an 8 x 8 grid to JPEG (band 256, q85, restart rows 1),
      byte-identical to the same call with STITCH_TPU_DEVICE_DECODE=0 (host
-     decode, card encode): decode_band once per tile and band, into the
-     band on the card, no tile decoded on the host, idct_dequant three
-     times and ycc_rgba once per decode_band; the 8 x 2 grid (16.8 MP), a
-     2 x 2 grid of q90 4:4:4 tiles with restart rows 0 and a mixed PNG and
-     JPEG 2 x 2 grid against the CPU path;
+     decode, card encode): every band decoded whole on the card (32 bands,
+     256 tile-and-band decodes), no tile decoded on the host, and per
+     decoded band one upload, one idct_dequant and one ycc_rgba launch; the
+     8 x 2 grid (16.8 MP), a 2 x 2 grid of q90 4:4:4 tiles with restart
+     rows 0 and a mixed PNG and JPEG 2 x 2 grid (its JPEG tiles one
+     decode_band call a band, read back) against the CPU path;
    - PNG: the 67 MP grid to PNG (level 6) and a 2 x 2 grid of 1024 x 1024
      RGBA16 tiles to PNG, filter select launched once for each band; a
      2048 x 2048 background under 50 sprites of 128 x 128 with partial
@@ -71,6 +77,9 @@ path. Phases, each printing its lines before the last:
      times each, and every blended band must reach the encoder as a tensor
      on the card); then compositing against its plain version on the
      positioned runs' most crowded real band;
+   - the rest of the API: ``JpegEncoder.encode_to_buffer`` of one tile and
+     the command line (``image_stitch_tpu_torch.__main__.main``) over four
+     tile files, on the card against ``device="cpu"``, byte for byte;
 5. timing: per-band time of each JPEG stage, of pack_merge against its
    plain version (the plain pack, then the plain merge) and against
    ``index_add_`` of the same words (the one PyTorch call that computes the
@@ -82,22 +91,27 @@ path. Phases, each printing its lines before the last:
    warm-up), and for the hand kernels and ``index_add_`` also the device
    time per call from torch.profiler, which leaves out host launch time
    (the ``ms`` and ``library_ms`` of the kernel line); end-to-end
-   MP/s of the torch path for grid to JPEG, grid to PNG and positioned to
-   PNG, and of host decode + assembly and host deflate alone; one profiled
+   MP/s of the torch path for grid to JPEG (two runs), grid to PNG and
+   positioned to PNG (one run each: the host's deflate sets them), and of
+   host decode + assembly and host deflate alone; one profiled
    run each of grid to JPEG and grid to PNG. For the JPEG kernels:
-   idct_dequant and ycc_rgba on a real tile band of the JPEG-tile grid,
-   fdct_quant, symbol_streams and group_layout (against ``torch.cumsum``
+   the batched idct_dequant and ycc_rgba on a real band of the JPEG-tile
+   grid (8 tiles, one launch each), that band's whole decode between CUDA
+   events beside the same tiles decoded one at a time, fdct_quant, symbol_streams and group_layout (against ``torch.cumsum``
    over the same bit counts, the yardstick the port never calls) on a real
    256 x 8192 band, each against its plain version and its bytes bound;
    end-to-end MP/s of JPEG tiles to
    JPEG with device decode on and off, and of host Huffman decode alone;
-   a profiled run of JPEG tiles to JPEG.
+   a profiled run of JPEG tiles to JPEG, which must show one pinned
+   host-to-device copy per decoded band and, besides, only the few small
+   copies of the encoder's set-up.
 
 The line before the last is a JSON object with one entry per kernel: its
 launches on the main paths, its max |kernel - plain|, its median time, the
 plain version's and the library call's, and its least time on the card
 (``bound_ms``: the bytes it must move over 3.35 TB/s). The last line is
-``{"ok": true, "device": {...}}``. Any failure exits non-zero.
+``{"ok": true, "device": {...}}``. Any failure exits non-zero. Lines that
+start with ``time:`` give the wall seconds each phase took in this run.
 """
 
 from __future__ import annotations
@@ -124,6 +138,11 @@ SIDE = 2048
 SPRITES = 50
 SPRITE = 128
 CROWDED = 500  # segments of the crowded synthetic compositing band
+# Host-to-device copies from pageable memory that a JPEG-tile run may make
+# besides its one pinned upload per decoded band: the encoder's tables and
+# the layout's state, made once a run: 7 to 11 in the profiles taken when
+# this was written, and a few to spare.
+H2D_ONCE = 14
 # H100 SXM device memory rate (NVIDIA data sheet), for the bytes bound.
 HBM_BYTES_PER_S = 3.35e12
 
@@ -600,9 +619,69 @@ def check_jpeg_kernels(dev: torch.device) -> dict:
                                       (1, prev, "the carried form from prev_dc (517, -66, 31)")):
             note("symbol_streams", symbols_err(blocks, luts, groups, sampling, prev_dc),
                  f"{n} {sampling} MCUs (ZRL runs, nonzeros at 63), {what}")
+    check_batched_decode(dev, rng, note)
     check_fdct_variants(dev, rng, note)
     check_entropy_edges(dev, rng, luts, note)
     return errs
+
+
+def batched_decode_err(band, dev: torch.device) -> tuple[int, int, set]:
+    """idct_dequant_batch and ycc_rgba_batch on one band of tiles (a ``Band``
+    of the decode cases) against their batched plain versions on the card:
+    (max |diff| of the planes, max |diff| of the band including what lies
+    between the tiles, the store variants of the tiles)."""
+    from image_stitch_tpu_torch.ops import kernels as K
+
+    jobs = K.idct_job_table(band.windows)
+    coefs, qtabs = (torch.from_numpy(a).to(dev) for a in (band.coefs, band.qtabs))
+    out = torch.full((band.h, band.width, 4), 9, dtype=torch.uint8, device=dev)
+    tiles = K.ycc_tile_table(band.tiles, band.width, out.data_ptr())
+    planes = K.idct_dequant_batch(coefs, qtabs, jobs,
+                                  torch.zeros(band.plane_bytes, dtype=torch.uint8, device=dev))
+    K.ycc_rgba_batch(planes, tiles, out)
+    want_planes = K.idct_dequant_batch_plain(coefs, qtabs, jobs, torch.zeros_like(planes))
+    want = K.ycc_rgba_batch_plain(want_planes, tiles, torch.full_like(out, 9))
+    torch.cuda.synchronize()
+    return max_err(planes, want_planes), max_err(out, want), set(tiles[:, 3].tolist())
+
+
+def check_batched_decode(dev: torch.device, rng: np.random.Generator, note) -> None:
+    """The batched decode kernels, one launch each for a band: the main
+    path's shape (8 4:2:0 tiles of TILE columns in a 256-row band, K 64: 24
+    jobs, 51,200 blocks; photo-sized coefficients, so the 32-bit column
+    pass, and one tile over all of int16 under 16-bit quantizers, so the
+    64-bit one), then the CPU tests' mixed tables (every sampling, K 8 to
+    64, x0 % 4 of 0..3, ragged widths, image edges). Every store variant of
+    ``YCC_VARIANTS`` must run."""
+    from image_stitch_tpu_torch import testing as cases
+    from image_stitch_tpu_torch.ops import kernels as K
+
+    big = (cases.quantizer(rng, 65535),) * 3
+    q90 = tuple(cases.quantizer(rng, 24) for _ in range(3))
+    tiles = [cases.Tile("420", TILE, TILE, BAND_ROWS, 2 * BAND_ROWS, quants=q90, amplitude=1024)
+             for _ in range(GRID - 1)] + [cases.Tile("420", TILE, TILE, BAND_ROWS, 2 * BAND_ROWS,
+                                                     quants=big)]
+    band = cases.make_band(rng, tiles, [c * TILE for c in range(GRID)], GRID * TILE)
+    ran = set()
+    p_err, b_err, variants = batched_decode_err(band, dev)
+    ran |= variants
+    what = (f"a band of {GRID} 4:2:0 tiles, {len(band.windows)} jobs, "
+            f"{sum(w[1] for w in band.windows)} blocks, K 64, both column passes")
+    note("idct_dequant", p_err, what)
+    note("ycc_rgba", b_err, what)
+    for seed in (1, 2):
+        for off_4 in (False, True):
+            mixed = cases.mixed_band(seed, off_4)
+            p_err, b_err, variants = batched_decode_err(mixed, dev)
+            ran |= variants
+            what = (f"the mixed table, seed {seed}: {len(mixed.tiles)} tiles, "
+                    f"{len(mixed.windows)} jobs, band {mixed.h} x {mixed.width}")
+            note("idct_dequant", p_err, what)
+            note("ycc_rgba", b_err, what)
+    if ran != set(range(len(K.YCC_VARIANTS))):
+        fail(f"ycc_rgba variants run: {sorted(K.YCC_VARIANTS[i] for i in ran)} of "
+             f"{K.YCC_VARIANTS}")
+    say(f"ycc_rgba: every store variant ran: {K.YCC_VARIANTS}")
 
 
 def symbols_err(blocks, luts, groups: int, sampling: str, prev_dc) -> int:
@@ -782,26 +861,31 @@ def same_as_cpu(out: bytes, opts: dict, what: str) -> None:
 COUNTED = ("pack_merge", "filter_select", "composite_segments", "idct_dequant", "ycc_rgba",
            "fdct_quant", "symbol_streams", "group_layout")
 # What the run under way did outside the kernels' counts, recorded by
-# tracing(): decode_band calls (components, into a band on the card),
-# whole tiles decoded on the host tier, and the kinds of band the JPEG
-# encoder was handed ("card" tensors, "host" arrays).
-TRACE: dict = {"decode_band": [], "host_tiles": 0, "encoder_bands": []}
+# tracing(): decode_band calls (a band of one tile, read back to the host:
+# the mixed bands), uploads of a staged band, whole tiles decoded on the
+# host tier, and the kinds of band the JPEG encoder was handed ("card"
+# tensors, "host" arrays).
+TRACE: dict = {"decode_band": 0, "uploads": 0, "host_tiles": 0, "encoder_bands": []}
 
 
 def tracing():
-    """Wrap DeviceJpegDecoder.decode_band, the host tier's whole-tile JPEG
-    decode and the JPEG encoder's encode_band to record into TRACE; returns
-    the function that unwraps them."""
+    """Wrap DeviceJpegDecoder.decode_band, BandStaging.upload, the host
+    tier's whole-tile JPEG decode and the JPEG encoder's encode_band to
+    record into TRACE; returns the function that unwraps them."""
     from image_stitch_tpu_torch.codecs.jpeg import decoder as jpeg_decoder
-    from image_stitch_tpu_torch.codecs.jpeg.device_decoder import DeviceJpegDecoder
+    from image_stitch_tpu_torch.codecs.jpeg.device_decoder import BandStaging, DeviceJpegDecoder
     from image_stitch_tpu_torch.codecs.jpeg.encoder import TorchStreamingJpegEncoder
 
     real = (DeviceJpegDecoder.decode_band, jpeg_decoder.decode_jpeg_to_rgba,
-            TorchStreamingJpegEncoder.encode_band)
+            TorchStreamingJpegEncoder.encode_band, BandStaging.upload)
 
-    def decode_band(self, y0, y1, return_device=False, out=None, x0=0):
-        TRACE["decode_band"].append((len(self._zz_blocks), out is not None and out.is_cuda))
-        return real[0](self, y0, y1, return_device, out, x0)
+    def decode_band(self, *args, **kwargs):
+        TRACE["decode_band"] += 1
+        return real[0](self, *args, **kwargs)
+
+    def upload(self, slot, nbytes):
+        TRACE["uploads"] += 1
+        return real[3](self, slot, nbytes)
 
     def host_tile(data, options=None):
         TRACE["host_tiles"] += 1
@@ -815,15 +899,16 @@ def tracing():
     DeviceJpegDecoder.decode_band = decode_band
     jpeg_decoder.decode_jpeg_to_rgba = host_tile
     TorchStreamingJpegEncoder.encode_band = encode_band
+    BandStaging.upload = upload
 
     def undo():
         (DeviceJpegDecoder.decode_band, jpeg_decoder.decode_jpeg_to_rgba,
-         TorchStreamingJpegEncoder.encode_band) = real
+         TorchStreamingJpegEncoder.encode_band, BandStaging.upload) = real
     return undo
 
 
 def reset_trace() -> None:
-    TRACE.update(decode_band=[], host_tiles=0, encoder_bands=[])
+    TRACE.update(decode_band=0, uploads=0, host_tiles=0, encoder_bands=[])
 
 
 def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
@@ -833,10 +918,12 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
     after; each kernel in ``must_launch`` must have launched in this run,
     pack_merge, symbol_streams and group_layout once per band dispatched
     (bands submitted plus re-packs), fdct_quant once per band quantized, filter select once
-    per PNG band, idct_dequant once per component and ycc_rgba once per
-    decode_band. ``expect`` holds counts of TRACE that must match:
-    "decode_band" calls, all of them "into_band" on the card or not,
-    "host_tiles", and "encoder_bands" of each kind. The output must equal
+    per PNG band, idct_dequant and ycc_rgba each once per band decoded on
+    the card (whatever its tiles) and once per decode_band call of a mixed
+    band, each with one upload. ``expect`` holds counts that must match:
+    "decode_band" (the counters' tile-and-band decodes), "device_bands"
+    (bands decoded whole on the card), "host_tiles", and "encoder_bands" of
+    each kind. The output must equal
     the CPU path's (``reference`` "cpu") or the same call's with
     STITCH_TPU_DEVICE_DECODE=0 on the card ("host_decode"). Returns
     (output, launches, counters)."""
@@ -853,16 +940,16 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
     out = image_stitch_tpu_torch.concat_to_buffer(opts, device=dev, counters=counters)
     secs = time.perf_counter() - t0
     launches = {k: getattr(K, k).launches for k in COUNTED}
-    calls = list(TRACE["decode_band"])
+    singles, uploads = TRACE["decode_band"], TRACE["uploads"]
     kinds = {k: TRACE["encoder_bands"].count(k) for k in ("card", "host")}
     host_tiles = TRACE["host_tiles"]
     for k in must_launch:
         if launches[k] <= 0:
             fail(f"{name}: {k} was not launched")
     say(f"main path {name}: {megapixels:.1f} MP -> {len(out)} B, torch path {secs:.3f} s; "
-        f"launches {launches}; counters {counters}; decode_band {len(calls)} calls, "
-        f"{sum(into for _c, into in calls)} into a band on the card; {host_tiles} tiles "
-        f"decoded on the host; encoder bands {kinds}")
+        f"launches {launches}; counters {counters}; {singles} decode_band calls read back "
+        f"to the host; {uploads} staged uploads; {host_tiles} tiles decoded on the host; "
+        f"encoder bands {kinds}")
     if counters.host_fallback_bands:
         fail(f"{name}: {counters.host_fallback_bands} bands were coded on the host")
     if opts["outputFormat"] == "jpeg":
@@ -881,12 +968,16 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
     elif launches["filter_select"] != counters.png_bands:
         fail(f"{name}: {launches['filter_select']} filter launches for "
              f"{counters.png_bands} bands")
-    if (launches["idct_dequant"], launches["ycc_rgba"]) != (sum(c for c, _ in calls), len(calls)):
+    decoded = counters.decode_bands_on_device + singles
+    if (launches["idct_dequant"], launches["ycc_rgba"], uploads) != (decoded,) * 3:
         fail(f"{name}: {launches['idct_dequant']} idct_dequant and {launches['ycc_rgba']} "
-             f"ycc_rgba launches for {len(calls)} decode_band calls")
+             f"ycc_rgba launches and {uploads} uploads for "
+             f"{counters.decode_bands_on_device} bands decoded on the card and {singles} "
+             f"decode_band calls")
     if "composite_segments" in must_launch and not counters.composite_bands_on_device:
         fail(f"{name}: no band was blended on the card")
-    got = {"decode_band": len(calls), "into_band": all(i for _c, i in calls) if calls else None,
+    got = {"decode_band": counters.decode_tile_bands,
+           "device_bands": counters.decode_bands_on_device,
            "host_tiles": host_tiles, **{f"encoder_bands_{k}": v for k, v in kinds.items()}}
     for key, want in (expect or {}).items():
         if got[key] != want:
@@ -898,12 +989,13 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
         reset_trace()
         try:
             t0 = time.perf_counter()
-            ref = image_stitch_tpu_torch.concat_to_buffer(opts, device=dev)
+            off = image_stitch_tpu_torch.EncodeCounters()
+            ref = image_stitch_tpu_torch.concat_to_buffer(opts, device=dev, counters=off)
             secs = time.perf_counter() - t0
         finally:
             del os.environ["STITCH_TPU_DEVICE_DECODE"]
-        if TRACE["decode_band"]:
-            fail(f"{name}: decode_band was called with STITCH_TPU_DEVICE_DECODE=0")
+        if off.decode_tile_bands or TRACE["decode_band"] or TRACE["uploads"]:
+            fail(f"{name}: the device tier decoded with STITCH_TPU_DEVICE_DECODE=0")
         if ref != out:
             fail(f"{name}: output ({len(out)} B) != the host-decode run's ({len(ref)} B)")
         say(f"main path {name}: byte-identical to the same call with "
@@ -949,6 +1041,56 @@ def main_paths(cases: list[tuple], dev: torch.device) -> tuple[dict, int, tuple]
     metas, srcs, bg, h, w = seen[0]
     err, _ = check_composite(metas, srcs, bg, h, w, "the positioned path's most crowded band")
     return total, err, seen[0]
+
+
+def api_checks(tiles: list[np.ndarray], tiles_png: list[bytes], dev: torch.device) -> None:
+    """The rest of the public API on the card, each output byte-identical to
+    the same call with the CPU as its device: ``JpegEncoder.encode_to_buffer``
+    of one tile (one carried stream: the encoder's four kernels must launch)
+    and the command line (``python -m image_stitch_tpu_torch``'s ``main``)
+    over four tile files to a JPEG."""
+    import tempfile
+
+    from image_stitch_tpu_torch import JpegEncoder
+    from image_stitch_tpu_torch.__main__ import main as cli
+    from image_stitch_tpu_torch.ops import kernels as K
+
+    encode = ("fdct_quant", "symbol_streams", "group_layout", "pack_merge")
+    for k in COUNTED:
+        getattr(K, k).launches = 0
+    rgba = tiles[0].tobytes()
+    got = JpegEncoder(TILE, TILE, QUALITY, "torch", "420", device=dev).encode_to_buffer(rgba)
+    launches = {k: getattr(K, k).launches for k in encode}
+    if got != JpegEncoder(TILE, TILE, QUALITY, "torch", "420", device="cpu").encode_to_buffer(rgba):
+        fail("JpegEncoder.encode_to_buffer: card output != CPU output")
+    if min(launches.values()) <= 0:
+        fail(f"JpegEncoder.encode_to_buffer: launches {launches}")
+    say(f"JpegEncoder.encode_to_buffer {TILE}x{TILE} 4:2:0 q{QUALITY} on the card: {len(got)} B, "
+        f"byte-identical to device='cpu'; launches {launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, data in enumerate(tiles_png[:4]):
+            paths.append(os.path.join(tmp, f"tile{i}.png"))
+            with open(paths[-1], "wb") as f:
+                f.write(data)
+        outs = {}
+        for k in COUNTED:
+            getattr(K, k).launches = 0
+        for device in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"{device}.jpg")
+            rc = cli([*paths, "--columns", "2", "-o", out, "--quality", str(QUALITY), "--quiet",
+                      "--device", device])
+            if rc != 0:
+                fail(f"the command line with --device {device} returned {rc}")
+            if device == "cuda":
+                launches = {k: getattr(K, k).launches for k in encode}
+            with open(out, "rb") as f:
+                outs[device] = f.read()
+    if outs["cuda"] != outs["cpu"] or min(launches.values()) <= 0:
+        fail(f"the command line: --device cuda ({len(outs['cuda'])} B, launches {launches}) != "
+             f"--device cpu ({len(outs['cpu'])} B)")
+    say(f"command line, 4 tiles --columns 2 to JPEG --device cuda: {len(outs['cuda'])} B, "
+        f"byte-identical to --device cpu; launches {launches}")
 
 
 def png_kernel_timing(dev: torch.device, real_band: tuple) -> tuple[dict, dict]:
@@ -1082,46 +1224,78 @@ def jpeg_tiles(tiles_png: list[bytes], dev: torch.device, sampling: str) -> list
 
 def jpeg_kernel_timing(tiles_jpeg: list[bytes], dev: torch.device) -> tuple[dict, dict, dict]:
     """The five JPEG kernels on real inputs of the JPEG-tile grid, each
-    against its plain version: idct_dequant on the luma window of one
-    tile's second band and ycc_rgba on that band's three windows into the
-    256 x 8192 band; fdct_quant, symbol_streams and group_layout (32
-    restart groups) on the grid's second band, decoded on the card. Returns (times, bytes
-    each must move, max |kernel - plain| on these inputs)."""
-    from image_stitch_tpu_torch.codecs.jpeg.device_decoder import DeviceJpegDecoder
+    against its plain version: the batched idct_dequant and ycc_rgba on the
+    grid's second band as the main path stages it (8 tiles, 24 jobs, one
+    launch each into the 256 x 8192 band), with the band's whole decode
+    between CUDA events beside the same tiles decoded one tile at a time;
+    fdct_quant, symbol_streams and group_layout (32 restart groups) on that
+    band, decoded on the card. Returns (times, bytes each must move, max
+    |kernel - plain| on these inputs)."""
+    from image_stitch_tpu_torch.codecs.jpeg.device_decoder import (
+        BandStaging, DeviceJpegDecoder, decode_tiles_band, stage_tiles_band)
     from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
     from image_stitch_tpu_torch.ops import jpeg_entropy_device as E
-    from image_stitch_tpu_torch.ops import jpeg_idct_device as D
     from image_stitch_tpu_torch.ops import kernels as K
 
     t, moved = {}, {}
     y0, y1 = BAND_ROWS, 2 * BAND_ROWS
     decs = [DeviceJpegDecoder(j, dev) for j in tiles_jpeg[:GRID]]
-    wins = decs[0].windows(y0, y1)
-    qs = [torch.from_numpy(q).to(dev) for q in decs[0]._qtabs]
-    zz = [torch.from_numpy(np.ascontiguousarray(z)).to(dev) for z, _bx, _g in wins]
-    planes = [K.idct_dequant(z, q, bx) for z, q, (_z, bx, _g) in zip(zz, qs, wins)]
-    geoms = [g for _z, _bx, g in wins]
+    items = [(d, y0, y1, c * TILE) for c, d in enumerate(decs)]
+    ring = BandStaging(dev)
     band = torch.zeros((BAND_ROWS, GRID * TILE, 4), dtype=torch.uint8, device=dev)
-    z0, q0, bx0 = zz[0], qs[0], wins[0][1]
-    errs = {"idct_dequant": max_err(planes[0], D.decode_plane(z0, q0, bx0)),
-            "ycc_rgba": max_err(K.ycc_rgba(planes, geoms, band, 0, TILE)[:, :TILE],
-                                D.window_to_rgba(planes, geoms, BAND_ROWS, TILE))}
-    say(f"JPEG tile band [{y0}, {y1}): K {decs[0]._k}, windows "
-        f"{[(tuple(z.shape), g) for z, g in zip(zz, geoms)]}")
-    t["idct_kernel"] = time_cuda(lambda: K.idct_dequant(z0, q0, bx0), reps=50)
-    t["idct_device"] = device_time(lambda: K.idct_dequant(z0, q0, bx0), what="idct_dequant")
-    t["idct_plain"] = time_cuda(lambda: D.decode_plane(z0, q0, bx0), reps=5)
-    # Read the coefficients and the table, write the samples.
-    moved["idct"] = z0.nbytes + q0.nbytes + planes[0].nbytes
-    t["ycc_kernel"] = time_cuda(lambda: K.ycc_rgba(planes, geoms, band, 0, TILE), reps=50)
-    t["ycc_device"] = device_time(lambda: K.ycc_rgba(planes, geoms, band, 0, TILE),
-                                 what="ycc_rgba")
-    t["ycc_plain"] = time_cuda(lambda: D.window_to_rgba(planes, geoms, BAND_ROWS, TILE), reps=5)
-    # Read each window's samples, write the tile's RGBA.
-    moved["ycc"] = sum((g[4] - g[3]) * g[5] for g in geoms) + BAND_ROWS * TILE * 4
-    t["decode_band"] = time_cuda(lambda: decs[0].decode_band(y0, y1, True, band, 0))
-    for c, d in enumerate(decs):
-        d.decode_band(y0, y1, True, band, c * TILE)
+    sb = stage_tiles_band(items, band, ring)
+    planes = torch.zeros(sb.plane_bytes, dtype=torch.uint8, device=dev)
+
+    def idct():
+        return K.idct_dequant_batch(sb.coefs, sb.qtabs, sb.jobs, planes, staged=sb.ctas)
+
+    def ycc():
+        return K.ycc_rgba_batch(planes, sb.tiles, band, staged=sb.tile_rows)
+
+    idct()
+    ycc()
+    want_planes = K.idct_dequant_batch_plain(sb.coefs, sb.qtabs, sb.jobs, torch.zeros_like(planes))
+    errs = {"idct_dequant": max_err(planes, want_planes),
+            "ycc_rgba": max_err(band, K.ycc_rgba_batch_plain(want_planes, sb.tiles,
+                                                             torch.zeros_like(band)))}
+    jobs = sb.jobs.tolist()
+    tables = sb.ctas.nbytes + sb.tile_rows.nbytes
+    say(f"JPEG tile band [{y0}, {y1}) of {GRID} tiles: K {decs[0]._k}, {len(jobs)} jobs, "
+        f"{sum(j[1] for j in jobs)} blocks in {sb.ctas.rows.shape[0]} CTAs, "
+        f"{sum(j[6] for j in jobs)} jobs with the 32-bit column pass, {sb.qtabs.shape[0]} "
+        f"quantizer tables, {sb.tiles.shape[0]} tiles, store variants "
+        f"{sorted({K.YCC_VARIANTS[v] for v in sb.tiles[:, 3].tolist()})}, one upload of "
+        f"{sb.coefs.nbytes + sb.qtabs.nbytes + tables} B")
+    t["idct_kernel"] = time_cuda(idct, reps=50)
+    t["idct_device"] = device_time(idct, what="idct_dequant")
+    t["idct_plain"] = time_cuda(lambda: K.idct_dequant_batch_plain(
+        sb.coefs, sb.qtabs, sb.jobs, torch.empty_like(planes)), reps=3)
+    # Read the coefficients, the quantizers and the tables, write the planes.
+    moved["idct"] = sb.coefs.nbytes + sb.qtabs.nbytes + sb.ctas.nbytes + planes.nbytes
+    t["ycc_kernel"] = time_cuda(ycc, reps=50)
+    t["ycc_device"] = device_time(ycc, what="ycc_rgba")
+    t["ycc_plain"] = time_cuda(lambda: K.ycc_rgba_batch_plain(planes, sb.tiles, band), reps=3)
+    # Read each window's samples and the tables, write the band.
+    tile_rows = sb.tiles.tolist()
+    moved["ycc"] = (sum(row[8 + 8 * i + 6] * row[8 + 8 * i + 7] for row in tile_rows
+                        for i in range(row[0])) + sb.tiles.nbytes
+                    + sum(BAND_ROWS * row[2] * 4 for row in tile_rows))
+    # The band's whole decode as the main path runs it (tables, the copy into
+    # pinned memory, one upload, two launches), and the same tiles as eight
+    # bands of one tile (eight uploads, sixteen launches).
+    t["decode_tiles_band"] = time_cuda(lambda: decode_tiles_band(items, band, ring))
+    t["decode_band_x8"] = time_cuda(lambda: [d.decode_band(y0, y1, True, band, x0, staging=ring)
+                                             for d, _y0, _y1, x0 in items])
+    # The same on the host's clock (20 calls, then one synchronize): the
+    # staging alone, and the whole decode.
+    for key, fn in (("stage_host_ms", stage_tiles_band), ("decode_host_ms", decode_tiles_band)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn(items, band, ring)
+        torch.cuda.synchronize()
+        t[key] = (time.perf_counter() - t0) * 1e3 / 20
+    decode_tiles_band(items, band, ring)
     lq, cq = (torch.from_numpy(q.astype(np.int32)).to(dev) for q in quality_scaled_tables(QUALITY))
     blocks = K.fdct_quant(band, lq, cq)
     errs["fdct_quant"] = max(max_err(a, b) for a, b in
@@ -1182,12 +1356,12 @@ def host_huffman_rate(tiles_jpeg: list[bytes]) -> float:
     return px / 1e6 / (time.perf_counter() - t0)
 
 
-def e2e_rates(opts: dict, megapixels: float, dev: torch.device) -> list[float]:
-    """End-to-end MP/s of two torch-path runs of ``opts``."""
+def e2e_rates(opts: dict, megapixels: float, dev: torch.device, runs: int = 2) -> list[float]:
+    """End-to-end MP/s of ``runs`` torch-path runs of ``opts``."""
     import image_stitch_tpu_torch
 
     rates = []
-    for _ in range(2):
+    for _ in range(runs):
         t0 = time.perf_counter()
         image_stitch_tpu_torch.concat_to_buffer(opts, device=dev)
         rates.append(megapixels / (time.perf_counter() - t0))
@@ -1229,7 +1403,8 @@ def host_deflate_rate(tiles: list[np.ndarray], dev: torch.device) -> float:
 def device_profile(opts: dict, dev: torch.device) -> dict:
     """One torch run of ``opts`` under torch.profiler: wall time, the summed
     time and count of device activities (kernels and copies, which run on
-    one stream here), and the eight with the most device time."""
+    one stream here), the eight with the most device time, and the count of
+    host-to-device copies, all and from pinned memory."""
     import image_stitch_tpu_torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1242,7 +1417,9 @@ def device_profile(opts: dict, dev: torch.device) -> dict:
             if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     return {"wall_ms": wall_ms, "device_ms": sum(r[1] for r in rows),
-            "activities": sum(r[2] for r in rows), "top": rows[:8]}
+            "activities": sum(r[2] for r in rows), "top": rows[:8],
+            "h2d": sum(r[2] for r in rows if "memcpy htod" in r[0].lower()),
+            "h2d_pinned": sum(r[2] for r in rows if "memcpy htod (pinned" in r[0].lower())}
 
 
 def bound_ms(n_bytes: int) -> float:
@@ -1255,6 +1432,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA GPU")
     dev = torch.device("cuda", 0)
+    clock = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        """Print the wall time since the last lap: where this run's own
+        seconds go, which follows the host as much as the code."""
+        now = time.perf_counter()
+        say(f"time: {what}: {now - clock[0]:.1f} s")
+        clock[0] = now
 
     # 1. Environment.
     smi = subprocess.run(
@@ -1287,11 +1472,13 @@ def main() -> None:
     for line in report():
         say(line)
     say(f"sass report (nvcc -Xptxas -v, cuobjdump) in {time.perf_counter() - t0:.2f} s")
+    lap("phases 1 and 2, environment, build and sass report")
 
     # 3. Kernels against their plain versions at the main paths' shapes.
     errs = check_kernels(dev)
     errs.update(check_png_kernels(dev))
     errs.update(check_jpeg_kernels(dev))
+    lap("phase 3, kernels against their plain versions")
 
     # 4. Main paths.
     t0 = time.perf_counter()
@@ -1308,6 +1495,7 @@ def main() -> None:
         f"{sum(map(len, tiles_jpeg444)) / 1e6:.1f} MB; {SMALL}x{SMALL} RGBA16 tiles, "
         f"{sum(map(len, tiles16_png)) / 1e6:.1f} MB; {SIDE}x{SIDE} background + {SPRITES} "
         f"sprites; made in {time.perf_counter() - t0:.2f} s")
+    lap("phase 4, inputs")
     grid_jpeg = {"inputs": tiles_png, "layout": {"columns": GRID}, "outputFormat": "jpeg",
                  "jpegQuality": QUALITY, "bandHeight": BAND_ROWS, "jpegRestartIntervalRows": 1}
     small_jpeg = {**grid_jpeg, "inputs": tiles_png[:SMALL] + tiles_png[GRID:GRID + SMALL],
@@ -1325,23 +1513,25 @@ def main() -> None:
     decode = ("idct_dequant", "ycc_rgba")
     launches, comp_err, real_band = main_paths([
         (f"grid -> JPEG ri=1 444 q{QUALITY}", grid_jpeg, mp_grid, encode, "cpu",
-         {"decode_band": 0}),
+         {"decode_band": 0, "device_bands": 0}),
         (f"JPEG tiles grid -> JPEG ri=1 444 q{QUALITY}", grid_tiles, mp_grid, decode + encode,
-         "host_decode", {"decode_band": GRID * n_bands, "into_band": True, "host_tiles": 0,
-                         "encoder_bands_card": n_bands, "encoder_bands_host": 0}),
+         "host_decode", {"decode_band": GRID * n_bands, "device_bands": n_bands,
+                         "host_tiles": 0, "encoder_bands_card": n_bands,
+                         "encoder_bands_host": 0}),
         (f"8x2 JPEG tiles grid -> JPEG ri=1 444 q{QUALITY}",
          {**grid_tiles, "inputs": tiles_jpeg[:2 * GRID]}, mp_grid / 4, decode + encode, "cpu",
-         {"decode_band": 2 * GRID * (TILE // BAND_ROWS), "into_band": True, "host_tiles": 0}),
+         {"decode_band": 2 * GRID * (TILE // BAND_ROWS), "device_bands": 2 * (TILE // BAND_ROWS),
+          "host_tiles": 0}),
         (f"2x2 4:4:4 JPEG tiles -> JPEG ri=0 q{QUALITY}",
          {**grid_tiles, "inputs": tiles_jpeg444, "layout": {"columns": SMALL},
           "jpegRestartIntervalRows": 0}, mp_small, decode + encode, "cpu",
-         {"decode_band": SMALL * SMALL * (TILE // BAND_ROWS), "into_band": True,
-          "host_tiles": 0}),
+         {"decode_band": SMALL * SMALL * (TILE // BAND_ROWS),
+          "device_bands": SMALL * (TILE // BAND_ROWS), "host_tiles": 0}),
         (f"2x2 mixed PNG and JPEG tiles -> JPEG ri=1 q{QUALITY}",
          {**grid_tiles, "inputs": [tiles_jpeg[0], tiles_png[1], tiles_jpeg[GRID],
                                    tiles_png[GRID + 1]], "layout": {"columns": SMALL}},
          mp_small, decode + encode, "cpu",
-         {"decode_band": SMALL * (TILE // BAND_ROWS), "into_band": False, "host_tiles": 0,
+         {"decode_band": SMALL * (TILE // BAND_ROWS), "device_bands": 0, "host_tiles": 0,
           "encoder_bands_card": 0}),
         (f"2x2 grid -> JPEG ri=0 444 q{QUALITY}", {**small_jpeg, "jpegRestartIntervalRows": 0},
          mp_small, encode),
@@ -1357,6 +1547,9 @@ def main() -> None:
     ], dev)
     errs["composite_segments"] = max(errs["composite_segments"], comp_err)
     say(f"main path launches, summed over the runs: {launches}")
+    lap("phase 4, main paths on the card and their references on the CPU")
+    api_checks(tiles, tiles_png, dev)
+    lap("phase 4, JpegEncoder and the command line")
 
     # 5. Timing.
     t, band_errs, moved = band_timing(tiles, dev)
@@ -1370,14 +1563,15 @@ def main() -> None:
     t.update(jt)
     moved.update(jpeg_moved)
     errs = {k: max(v, jpeg_errs.get(k, 0)) for k, v in errs.items()}
+    lap("phase 5, kernels and stages timed")
     rm, _, _, rh, rw = real_band
     for name, what in (("filter8", "RGBA8 band 256x32768 B"), ("filter16", "RGBA16 band 256x65536 B"),
                        ("composite", f"{SPRITES} segments into 256x8192"),
                        ("composite_real", f"the positioned path's {rm.shape[0]} segments "
                                           f"into {rh}x{rw}"),
                        ("composite_crowded", f"{CROWDED} segments into 256x8192"),
-                       ("idct", "a JPEG tile band's luma window"),
-                       ("ycc", "a JPEG tile band's windows into 256x8192"),
+                       ("idct", f"a real band of {GRID} JPEG tiles, 24 windows, one launch"),
+                       ("ycc", f"that band's {GRID} tiles into 256x8192, one launch"),
                        ("fdct", "the JPEG-tile grid's RGBA band 256x8192, 4:4:4"),
                        ("symbols", "that band's blocks, 32 restart groups"),
                        ("layout", "that band's bit counts, 32 restart groups")):
@@ -1390,14 +1584,20 @@ def main() -> None:
     say(f"layout of that band as one carried stream: device {fmt(t['layout_carried_device'])}, "
         f"plain {fmt(t['layout_carried_plain'])}; torch.cumsum over the same bit counts: "
         f"{fmt(t['cumsum_library'])}, device {fmt(t['cumsum_device'])} [{card}]")
-    say(f"decode_band of one 256-row tile band (3 idct_dequant, 1 ycc_rgba, 3 uploads): "
-        f"{fmt(t['decode_band'])} [{card}]")
-    for name, opts, mp in ((f"grid_jpeg 67.1 MP ri=1 q{QUALITY}", grid_jpeg, mp_grid),
-                           (f"jpeg_tiles 67.1 MP ri=1 q{QUALITY}, device decode", grid_tiles,
-                            mp_grid),
-                           ("grid_png 67.1 MP level 6", grid_png, mp_grid),
-                           (f"positioned_png {mp_side:.1f} MP", positioned, mp_side)):
-        r = e2e_rates(opts, mp, dev)
+    say(f"decode_tiles_band of that band's {GRID} tiles (tables, the copy into pinned memory, "
+        f"1 upload, 1 idct_dequant, 1 ycc_rgba): {fmt(t['decode_tiles_band'])}; on the host's "
+        f"clock {t['decode_host_ms']:.4f} ms, of it the staging {t['stage_host_ms']:.4f} ms; "
+        f"the same tiles as {GRID} "
+        f"decode_band calls ({GRID} uploads, {2 * GRID} launches): "
+        f"{fmt(t['decode_band_x8'])} [{card}]")
+    # Two runs of the JPEG paths; one of the PNG paths, which the host's
+    # deflate holds at some 8 s a run.
+    for name, opts, mp, runs in (
+            (f"grid_jpeg 67.1 MP ri=1 q{QUALITY}", grid_jpeg, mp_grid, 2),
+            (f"jpeg_tiles 67.1 MP ri=1 q{QUALITY}, device decode", grid_tiles, mp_grid, 2),
+            ("grid_png 67.1 MP level 6", grid_png, mp_grid, 1),
+            (f"positioned_png {mp_side:.1f} MP", positioned, mp_side, 1)):
+        r = e2e_rates(opts, mp, dev, runs)
         say(f"e2e {name} torch: {', '.join(f'{x:.2f}' for x in r)} MP/s [{card}]")
     os.environ["STITCH_TPU_DEVICE_DECODE"] = "0"
     try:
@@ -1412,6 +1612,7 @@ def main() -> None:
         f"[{card}]")
     say(f"host deflate alone (level 6, filtered rows): {host_deflate_rate(tiles, dev):.2f} MP/s "
         f"[{card}]")
+    lap("phase 5, end-to-end rates and the host stages alone")
     for name, opts in (("grid_jpeg ri=1", grid_jpeg), ("jpeg_tiles ri=1", grid_tiles),
                        ("grid_png", grid_png)):
         p = device_profile(opts, dev)
@@ -1421,7 +1622,16 @@ def main() -> None:
             f"[{card}]")
         for key, ms, count in p["top"]:
             say(f"  device {ms:9.3f} ms  x{count:<6d} {key[:100]}")
+        if name.startswith("jpeg_tiles"):
+            # One pinned upload per decoded band; the rest, from pageable
+            # memory, are the encoder's set-up (quantizers, symbol table).
+            say(f"  host-to-device copies: {p['h2d']}, of them {p['h2d_pinned']} from pinned "
+                f"memory for {n_bands} decoded bands [{card}]")
+            if p["h2d_pinned"] != n_bands or p["h2d"] > n_bands + H2D_ONCE:
+                fail(f"profiled {name}: {p['h2d']} host-to-device copies ({p['h2d_pinned']} "
+                     f"pinned) for {n_bands} decoded bands")
 
+    lap("phase 5, profiled runs")
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("image_stitch_tpu", "jax"))
     if foreign:
         fail(f"modules of the JAX package or jax were loaded: {foreign}")

@@ -139,10 +139,10 @@ def load_cuda_kernels() -> ctypes.CDLL:
         lib.filter_select_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.composite_segments_launch.restype = _I
         lib.composite_segments_launch.argtypes = [_P, _I, _P, _U32, _P, _I, _I, _P, _P]
-        lib.idct_dequant_launch.restype = _I
-        lib.idct_dequant_launch.argtypes = [_P, _I, _I, _P, _I, _P, _P]
-        lib.ycc_rgba_launch.restype = _I
-        lib.ycc_rgba_launch.argtypes = [_P, _P, _P, _GEOM, _I, _P, _I64, _I, _I, _I, _P]
+        lib.idct_dequant_batch_launch.restype = _I
+        lib.idct_dequant_batch_launch.argtypes = [_P, _P, _P, _I, _P, _P]
+        lib.ycc_rgba_batch_launch.restype = _I
+        lib.ycc_rgba_batch_launch.argtypes = [_P, _P, _I, _I, _P, _I64, _I, _P]
         lib.fdct_quant_launch.restype = _I
         lib.fdct_quant_launch.argtypes = [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P]
         lib.symbol_streams_launch.restype = _I
@@ -191,6 +191,14 @@ def load_host_shim() -> ctypes.CDLL:
         lib.idct_dequant_host.argtypes = [_P, _I, _I, _P, _I, _P]
         lib.ycc_rgba_host.restype = None
         lib.ycc_rgba_host.argtypes = [_P, _P, _P, _GEOM, _I, _P, _I64, _I, _I, _I]
+        lib.idct_dequant_batch_host.restype = None
+        lib.idct_dequant_batch_host.argtypes = [_P, _P, _P, _I, _P]
+        lib.idct_range_limit_host.restype = None
+        lib.idct_range_limit_host.argtypes = [_P, _P, _P, _I]
+        lib.idct_pass_host.restype = None
+        lib.idct_pass_host.argtypes = [_P, _I]
+        lib.ycc_rgba_batch_host.restype = None
+        lib.ycc_rgba_batch_host.argtypes = [_P, _P, _I, _I, _P, _I64, _I]
         lib.fdct_quant_host.restype = None
         lib.fdct_quant_host.argtypes = [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P]
         lib.symbol_streams_host.restype = None

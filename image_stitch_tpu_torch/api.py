@@ -62,9 +62,11 @@ def concat_to_buffer(options: Options, *, device="cuda",
 
 def concat_to_file(options: Options, path: str | os.PathLike, *, device="cuda",
                    counters: EncodeCounters | None = None) -> None:
-    """Stream the encoded output into a file."""
+    """Stream the encoded output into a file. Options and device are checked
+    before the file is opened, so a refused call leaves no empty file."""
+    chunks = concat_streaming(options, device=device, counters=counters)
     with open(path, "wb") as f:
-        for chunk in concat_streaming(options, device=device, counters=counters):
+        for chunk in chunks:
             f.write(chunk)
 
 

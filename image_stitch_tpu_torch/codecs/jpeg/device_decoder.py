@@ -3,12 +3,17 @@ band on the device.
 
 Counterpart of ``image_stitch_tpu/codecs/jpeg/device_decoder.py``. The
 serial entropy stage runs once on the host
-(``owned_decoder.decode_coefficients``); per band, each component's window
-of zigzag-prefix coefficients goes up as int16 and two kernels do the rest
-(``ops/kernels.py``): ``idct_dequant`` (dezigzag, dequantize, islow IDCT,
-range limit) once per component, then ``ycc_rgba`` (crop, upsample, colour)
-once, writing RGBA straight into the caller's band at the tile's x offset.
-On a CPU tensor both run their plain versions (``ops/jpeg_idct_device``).
+(``owned_decoder.decode_coefficients``). Per band, ``decode_tiles_band``
+takes every tile of the band at once: the windows of zigzag-prefix
+coefficients of all tiles and components, their quantizer tables and the
+two kernels' tables go up in ONE copy from a pinned staging buffer, and two
+launches do the rest (``ops/kernels.py``): ``idct_dequant_batch`` (dezigzag,
+dequantize, islow IDCT, range limit of every window) and ``ycc_rgba_batch``
+(crop, upsample, colour), which writes each tile's RGBA straight into the
+caller's band at the tile's x offset. ``DeviceJpegDecoder.decode_band`` is a
+band of one tile. On a CPU tensor both run their plain versions
+(``ops/jpeg_idct_device``). Device memory stays proportional to a band: a
+tile's coefficients live on the host and only a band's windows go up.
 
 Upload: the band's zigzag prefix of K coefficients per block, K the image's
 highest nonzero zigzag index + 1 rounded up to a multiple of 8. Photo
@@ -23,11 +28,20 @@ band equals the whole-image decode.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from ...errors import StitchError
-from ...ops.kernels import idct_dequant, ycc_rgba
+from ...ops.kernels import (
+    IDCT_INT32_MAX_DEQ,
+    StagedTable,
+    idct_dequant_batch,
+    idct_job_table,
+    ycc_rgba_batch,
+    ycc_tile_table,
+)
 from .owned_decoder import decode_coefficients
 from .tables import ZIGZAG
 
@@ -67,15 +81,22 @@ class DeviceJpegDecoder:
         self.height = height
         self.device = torch.device(device)
         self._geom = geom  # (by, bx, comp_w, comp_h, h_exp, v_exp) per comp
-        self._qtabs = [np.asarray(q, dtype=np.int32) for q in qtabs]
+        zz_idx = np.asarray(ZIGZAG)
+        # Quantizers in zigzag order, as csrc/idct.cu reads them.
+        self._qtabs_zz = [np.ascontiguousarray(np.asarray(q, dtype=np.int32)[zz_idx])
+                          for q in qtabs]
         self._zz_blocks: list[np.ndarray] = []
         self._k: list[int] = []
+        # Per component: whether every |coefficient * quantizer| is within
+        # the bound under which the IDCT's column pass is exact in 32 bits.
+        self._narrow: list[bool] = []
         self.safe = len(blocks) in (1, 3)
-        zz_idx = np.asarray(ZIGZAG)
         zz_pos = np.argsort(zz_idx)  # zigzag position of each natural index
-        for b in blocks:
-            if b.size and max(int(b.max()), -int(b.min())) >= (1 << 15):
+        for b, q in zip(blocks, self._qtabs_zz):
+            peak = max(int(b.max()), -int(b.min())) if b.size else 0
+            if peak >= (1 << 15):
                 self.safe = False
+            self._narrow.append(peak * int(np.abs(q).max()) <= IDCT_INT32_MAX_DEQ)
             # Image-wide zigzag prefix: K = last nonzero zigzag position + 1,
             # rounded up to a multiple of 8; only those columns are kept
             # (np.take: several times faster than fancy indexing here).
@@ -84,7 +105,7 @@ class DeviceJpegDecoder:
             k = min(64, -(-k // 8) * 8)
             self._k.append(k)
             self._zz_blocks.append(np.take(b, zz_idx[:k], axis=1).astype(np.int16))
-        self._dev_q: list[torch.Tensor] | None = None
+        self._staging: BandStaging | None = None
 
     def to(self, device) -> "DeviceJpegDecoder":
         """This stream's decoder on ``device``, sharing the host
@@ -95,14 +116,8 @@ class DeviceJpegDecoder:
         other = object.__new__(DeviceJpegDecoder)
         other.__dict__.update(self.__dict__)
         other.device = device
-        other._dev_q = None
+        other._staging = None
         return other
-
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        host = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            return host.pin_memory().to(self.device, non_blocking=True)
-        return host.to(self.device)
 
     def windows(self, y0: int, y1: int) -> list[tuple[np.ndarray, int, tuple]]:
         """Per component, what the band decode of image rows [y0, y1)
@@ -121,21 +136,22 @@ class DeviceJpegDecoder:
         return out
 
     def decode_band(self, y0: int, y1: int, return_device: bool = False,
-                    out: torch.Tensor | None = None, x0: int = 0):
+                    out: torch.Tensor | None = None, x0: int = 0,
+                    staging: "BandStaging | None" = None):
         """Decode image rows [y0, y1) to (y1 - y0, width, 4) uint8 RGBA: a
         tensor on the decoder's device when ``return_device``, else a host
         array. With ``out``, an (y1 - y0, W, 4) uint8 tensor on the device,
         the pixels go to its columns [x0, x0 + width) instead, and ``out``
-        is returned."""
-        windows = self.windows(y0, y1)
-        if self._dev_q is None:
-            self._dev_q = [self._upload(q) for q in self._qtabs]
-        planes = [idct_dequant(self._upload(zz), q, bx)
-                  for (zz, bx, _geom), q in zip(windows, self._dev_q)]
+        is returned. A band of one tile of ``decode_tiles_band``; ``staging``
+        as there, else the decoder's own."""
         if out is None:
             out = torch.empty((y1 - y0, self.width, 4), dtype=torch.uint8, device=self.device)
             x0 = 0
-        ycc_rgba(planes, [geom for _zz, _bx, geom in windows], out, x0, self.width)
+        if staging is None:
+            if self._staging is None:
+                self._staging = BandStaging(self.device)
+            staging = self._staging
+        decode_tiles_band([(self, y0, y1, x0)], out, staging)
         if return_device:
             return out
         return out.cpu().numpy()
@@ -147,3 +163,156 @@ class DeviceJpegDecoder:
             for y0 in range(0, self.height, band_height)
         ]
         return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+# Buffers of a staging ring: the host fills one while the copy of the band
+# before may still read the other. The events guard a buffer's reuse only
+# because there are two.
+STAGING_RING = 2
+
+
+class BandStaging:
+    """The pinned host buffers a band's upload is staged in: a ring of
+    ``STAGING_RING`` buffers. Each is guarded by an event recorded right
+    after its copy was enqueued: ``acquire`` waits for that event before it
+    hands the buffer out again, so the host never writes memory that a copy
+    in flight reads. On the CPU the buffers are plain tensors and there is
+    nothing to wait for."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._buffers: list[torch.Tensor | None] = [None] * STAGING_RING
+        self._events: list[object | None] = [None] * STAGING_RING
+        self._next = 0
+        self.waits = 0  # acquires that found their buffer's copy guarded by an event
+
+    def acquire(self, nbytes: int) -> tuple[int, torch.Tensor]:
+        """The next buffer of the ring, at least ``nbytes`` long, free to
+        write: (its slot, the uint8 tensor)."""
+        slot = self._next
+        self._next = (slot + 1) % STAGING_RING
+        event = self._events[slot]
+        if event is not None:
+            event.synchronize()
+            self._events[slot] = None
+            self.waits += 1
+        buf = self._buffers[slot]
+        if buf is None or buf.numel() < nbytes:
+            # Grown in steps of a quarter, so that bands of slightly
+            # different sizes do not each pin a new buffer.
+            buf = torch.empty(max(nbytes, 1) * 5 // 4, dtype=torch.uint8,
+                              pin_memory=self.device.type == "cuda")
+            self._buffers[slot] = buf
+        return slot, buf
+
+    def upload(self, slot: int, nbytes: int) -> torch.Tensor:
+        """The first ``nbytes`` of the slot's buffer on the device: one
+        asynchronous copy, with the slot's event recorded behind it. On the
+        CPU the buffer itself."""
+        host = self._buffers[slot][:nbytes]
+        if self.device.type != "cuda":
+            return host
+        dev = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+        dev.copy_(host, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self._events[slot] = event
+        return dev
+
+
+class StagedBand(NamedTuple):
+    """A band of tiles staged and uploaded: what the two kernels take. The
+    coefficients and the quantizers are on the device; the job and tile
+    tables are on the host, where the wrappers check them, and ``ctas`` and
+    ``tile_rows`` carry the rows made from them to the device."""
+
+    coefs: torch.Tensor
+    qtabs: torch.Tensor
+    jobs: torch.Tensor
+    ctas: StagedTable
+    tiles: torch.Tensor
+    tile_rows: StagedTable
+    plane_bytes: int
+
+
+def stage_tiles_band(items, out: torch.Tensor, staging: BandStaging) -> StagedBand:
+    """Build the two kernels' tables for one band of tiles (``items`` and
+    ``out`` as ``decode_tiles_band`` takes them) and carry everything the
+    band needs up in ONE copy: the IDCT's CTA table and the tile table, each
+    distinct quantizer table once, and every window's coefficients (each a contiguous run of its
+    decoder's zigzag-prefix blocks), each part at a 16 B boundary of one
+    pinned buffer of ``staging``. On the CPU nothing is copied: the staged
+    tensors are views of that buffer, good until the ring hands it out
+    again."""
+    device = out.device
+    h = out.shape[0]
+    qtab_of: dict[bytes, int] = {}
+    qtabs: list[np.ndarray] = []
+    windows, tiles, sources = [], [], []
+    coef_at = plane_at = 0
+    for dec, y0, y1, x0 in items:
+        if dec.device != device or staging.device != device:
+            raise StitchError(f"decoder on {dec.device}, staging on {staging.device}, "
+                              f"band on {device}")
+        if y1 - y0 != h:
+            raise StitchError(f"rows [{y0}, {y1}) do not fill a band of {h} rows")
+        comps = []
+        for c, (zz, bx, (h_exp, v_exp, r0, w0l, w1l, comp_w)) in enumerate(dec.windows(y0, y1)):
+            q = dec._qtabs_zz[c]
+            key = q.tobytes()
+            if key not in qtab_of:
+                qtab_of[key] = len(qtabs)
+                qtabs.append(q)
+            n, k = zz.shape
+            windows.append((coef_at, n, k, qtab_of[key], bx, plane_at, dec._narrow[c]))
+            comps.append((plane_at, bx * 8, h_exp, v_exp, r0, w0l, w1l - w0l, comp_w))
+            sources.append((coef_at, zz))
+            coef_at += n * k  # k % 8 == 0: every window starts at a 16 B boundary
+            plane_at += n * 64
+        tiles.append((x0, dec.width, comps))
+    jobs = idct_job_table(windows)
+    tile_table = ycc_tile_table(tiles, out.shape[1], out.data_ptr())
+
+    parts = (StagedTable.for_idct(jobs), StagedTable.for_ycc(tile_table))
+    at, offsets = 0, []
+    for t in parts:
+        offsets.append(at)
+        at = _align16(at + t.nbytes)
+    q_at = at
+    c_at = q_at + len(qtabs) * 256
+    nbytes = c_at + coef_at * 2
+    slot, host = staging.acquire(nbytes)
+    host_np = host.numpy()
+    for t, o in zip(parts, offsets):
+        t.stage(host_np, o)
+    for i, q in enumerate(qtabs):
+        host_np[q_at + i * 256 : q_at + (i + 1) * 256] = q.view(np.uint8)
+    coefs_np = host_np[c_at:nbytes].view(np.int16)
+    for o, zz in sources:
+        coefs_np[o : o + zz.size] = zz.reshape(-1)
+    dev = staging.upload(slot, nbytes)
+    for t in parts:
+        t.bind(dev)
+    return StagedBand(
+        dev[c_at:nbytes].view(torch.int16), dev[q_at:c_at].view(torch.int32).view(-1, 64),
+        jobs, parts[0], tile_table, parts[1], plane_at)
+
+
+def decode_tiles_band(items, out: torch.Tensor, staging: BandStaging) -> torch.Tensor:
+    """Decode one band of several JPEG tiles into ``out``.
+
+    ``items``: per tile (decoder, y0, y1, x0): the tile's image rows
+    [y0, y1), as many as ``out`` has rows, go to ``out``'s columns
+    [x0, x0 + decoder.width); ``out``: the (h, W, 4) uint8 band on the
+    decoders' device; ``staging``: the ring of host buffers of that device.
+    One upload (``stage_tiles_band``), then ``idct_dequant_batch`` fills the
+    band's plane buffer and ``ycc_rgba_batch`` colours it into ``out``, with
+    nothing between them. Returns ``out``."""
+    band = stage_tiles_band(items, out, staging)
+    planes = torch.empty(band.plane_bytes, dtype=torch.uint8, device=out.device)
+    idct_dequant_batch(band.coefs, band.qtabs, band.jobs, planes, staged=band.ctas)
+    return ycc_rgba_batch(planes, band.tiles, out, staged=band.tile_rows)

@@ -33,6 +33,7 @@ import torch
 
 from ...errors import StitchError
 from ...ops.counters import EncodeCounters
+from ...ops.device import resolve_device
 from ...ops.jpeg_entropy_device import TorchJpegEncoder
 from .tables import (
     STD_AC_CHROMA_BITS,
@@ -221,6 +222,13 @@ class TorchStreamingJpegEncoder:
             # A tensor's rows are a view: nothing writes to a submitted band.
             self._pending = rest.copy() if isinstance(rest, np.ndarray) else rest
 
+    def encode_strip_bytes(self, strip_rgba: bytes | np.ndarray) -> Iterator[bytes]:
+        """Reference-shaped API: raw RGBA strip bytes of <=8 rows
+        (jpeg-encoder.ts:155-172)."""
+        arr = np.frombuffer(bytes(strip_rgba), dtype=np.uint8)
+        rows = arr.size // (self.width * 4)
+        yield from self.encode_band(arr.reshape(rows, self.width, 4))
+
     def _join(self, pending, band):
         """Held-back rows, then the band: on the host when both are host
         arrays, else on the device (alpha dropped: JPEG ignores it)."""
@@ -259,3 +267,57 @@ class TorchStreamingJpegEncoder:
         out += self._dev_encoder.flush()
         out += b"\xff\xd9"  # EOI
         yield bytes(out)
+
+
+class JpegEncoder:
+    """Reference-compatible wrapper class (src/jpeg-encoder.ts:96-245), the
+    counterpart of the JAX package's ``JpegEncoder`` on
+    ``TorchStreamingJpegEncoder``: one carried stream, no restart markers.
+    ``backend`` keeps its place in the signature; only "auto" and "torch"
+    name a path of this package. ``device`` is "cuda" (raises without a
+    card) or "cpu" (the kernels' plain versions)."""
+
+    def __init__(self, width: int, height: int, quality: int = 85,
+                 backend: str = "torch", sampling: str = "444", *,
+                 device="cuda", counters: EncodeCounters | None = None):
+        if backend not in ("auto", "torch"):
+            raise StitchError(
+                f"backend={backend!r} is not a path of image_stitch_tpu_torch; "
+                "use 'torch' (or leave it unset)"
+            )
+        self._inner = TorchStreamingJpegEncoder(
+            width, height, quality, sampling,
+            device=resolve_device(device), counters=counters,
+        )
+        self.width = width
+        self.height = height
+        self.quality = quality
+
+    def header(self) -> Iterator[bytes]:
+        return self._inner.header()
+
+    def encode_strip(self, strip: bytes | np.ndarray, _last_scanline=None) -> Iterator[bytes]:
+        return self._inner.encode_strip_bytes(strip)
+
+    def finish(self) -> Iterator[bytes]:
+        return self._inner.finish()
+
+    def encode_to_buffer(self, rgba: bytes | np.ndarray) -> bytes:
+        """Batch helper (reference: encodeToBuffer, jpeg-encoder.ts:199-245)."""
+        arr = np.frombuffer(bytes(rgba), dtype=np.uint8).reshape(
+            self.height, self.width, 4
+        )
+        chunks = list(self._inner.encode_band(arr))
+        chunks += list(self._inner.finish())
+        return b"".join(chunks)
+
+
+def encode_jpeg(
+    rgba: np.ndarray, width: int, height: int, quality: int = 85,
+    backend: str = "torch", sampling: str = "444", *,
+    device="cuda", counters: EncodeCounters | None = None,
+) -> bytes:
+    """One-shot encode (reference: encodeJpeg, jpeg-encoder.ts:256-264)."""
+    enc = JpegEncoder(width, height, quality, backend, sampling,
+                      device=device, counters=counters)
+    return enc.encode_to_buffer(np.asarray(rgba, dtype=np.uint8).tobytes())

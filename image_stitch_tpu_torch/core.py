@@ -59,7 +59,7 @@ from .layout.positioned import (
 )
 from .ops.composite_device import DeviceCompositor
 from .ops.counters import EncodeCounters
-from .ops.device import TorchBackend
+from .ops.device import TorchBackend, resolve_device
 from .ops.pixel import (
     background_pixel,
     composite_band,
@@ -73,20 +73,6 @@ from .types import (
     image_header_to_png_header,
 )
 from .utils import PNG_SIGNATURE, scanline_byte_length
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """``device`` as a torch.device; "cuda" without a usable card raises
-    instead of running on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise StitchError(
-            f"device={str(device)!r} requested but CUDA is not available; "
-            "pass device='cpu' to run the plain torch versions"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise StitchError(f"Unsupported device: {device}")
-    return dev
 
 
 def _to_host(band: np.ndarray | torch.Tensor) -> np.ndarray:
@@ -659,8 +645,9 @@ class TorchStreamingConcatenator:
         # JPEG sources expose a device band tier (host Huffman once, the
         # pixel math per band on self.device); when the bands go to the
         # JPEG encoder on that device, a band fully tiled by such sources
-        # is decoded there, each tile written at its x offset into one band
-        # tensor, and decoded pixels never cross the link. Output bytes are
+        # is decoded there, all its tiles at once (one upload, two launches),
+        # each written at its x offset into one band tensor, and decoded
+        # pixels never cross the link. Output bytes are
         # identical by the tier's exactness, so the gate only routes.
         import os as _os
 
@@ -681,19 +668,51 @@ class TorchStreamingConcatenator:
                 dev_cache[image_idx] = sources[image_idx].device_decoder(self.device)
             return dev_cache[image_idx]
 
-        def dev_rows(image_idx: int, seg_y0: int, seg_y1: int, out=None, x0: int = 0):
-            """The segment's rows from the device tier: into ``out`` at
-            column x0 (a band tensor), or as a host array."""
-            dev = dev_cache[image_idx]
-            ly0 = seg_y0 - placement_y0[image_idx]
-            rows = dev.decode_band(ly0, ly0 + (seg_y1 - seg_y0), return_device=out is not None,
-                                   out=out, x0=x0)
+        ring = None
+
+        def staging():
+            """The run's ring of pinned staging buffers for the device
+            tier's uploads, made when the first band needs it."""
+            nonlocal ring
+            if ring is None:
+                from .codecs.jpeg.device_decoder import BandStaging
+
+                ring = BandStaging(self.device)
+            return ring
+
+        def rows_served(image_idx: int, n: int) -> None:
+            """Bookkeeping of ``n`` rows of a source served by the device
+            tier; a finished source frees its coefficient arrays."""
+            self.counters.decode_tile_bands += 1
             src = sources[image_idx]
-            src.note_rows_served(seg_y1 - seg_y0)
+            src.note_rows_served(n)
             if src.rows_served >= src.header.height:
-                dev_cache[image_idx] = None  # free the coefficient arrays
+                dev_cache[image_idx] = None
                 src._dev_state = (None,)
+
+        def dev_rows(image_idx: int, seg_y0: int, seg_y1: int):
+            """The segment's rows from the device tier, as a host array."""
+            ly0 = seg_y0 - placement_y0[image_idx]
+            rows = dev_cache[image_idx].decode_band(ly0, ly0 + (seg_y1 - seg_y0),
+                                                    staging=staging())
+            rows_served(image_idx, seg_y1 - seg_y0)
             return rows
+
+        def dev_band(segs, h: int) -> torch.Tensor:
+            """A band fully tiled by device-decodable segments, decoded on
+            the device: one upload and two launches for all its tiles, each
+            tile written at its x offset into the band tensor."""
+            from .codecs.jpeg import device_decoder
+
+            band_dev = torch.empty((h, width, 4), dtype=torch.uint8, device=self.device)
+            items = [(dev_cache[image_idx], seg_y0 - placement_y0[image_idx],
+                      seg_y1 - placement_y0[image_idx], x0)
+                     for image_idx, x0, _w, seg_y0, seg_y1 in segs]
+            device_decoder.decode_tiles_band(items, band_dev, staging())
+            self.counters.decode_bands_on_device += 1
+            for image_idx, _x0, _w, seg_y0, seg_y1 in segs:
+                rows_served(image_idx, seg_y1 - seg_y0)
+            return band_dev
 
         def make_plan(band_y0: int, h: int):
             """("device", segs, None) when the band is fully tiled by
@@ -736,9 +755,7 @@ class TorchStreamingConcatenator:
             plan = pending if pending is not None else make_plan(band_y0, h)
             pending = None
             if plan[0] == "device":
-                band_dev = torch.empty((h, width, 4), dtype=torch.uint8, device=self.device)
-                for image_idx, x0, _w, seg_y0, seg_y1 in plan[1]:
-                    dev_rows(image_idx, seg_y0, seg_y1, out=band_dev, x0=x0)
+                band_dev = dev_band(plan[1], h)
                 if band_idx + 1 < len(band_specs):
                     pending = make_plan(*band_specs[band_idx + 1])
                 yield band_dev

@@ -168,6 +168,79 @@ extern "C" void ycc_rgba_host(const uint8_t* p0, const uint8_t* p1, const uint8_
   }
 }
 
+// The batched IDCT as the card's CTAs split it: each CTA's row of the CTA
+// table, and per live block the 8 chunks staged into the 32-bit workspace,
+// the 8 column passes (32 or 64 bits by the flag), the 8 row passes.
+extern "C" void idct_dequant_batch_host(const int16_t* coefs, const int32_t* qtabs,
+                                        const int32_t* ctas, int n_ctas, uint8_t* planes) {
+  static const uint8_t zz_to_ws[64] = IDCT_ZIGZAG_WS;
+  for (int c = 0; c < n_ctas; ++c) {
+    const int32_t* cta = ctas + (size_t)c * IDCT_CTA_COLS;
+    const int k = cta[IDCT_CTA_K];
+    const bool narrow = (cta[IDCT_CTA_FLAGS] & IDCT_JOB_INT32) != 0;
+    for (int local = 0; local < cta[IDCT_CTA_LIVE]; ++local) {
+      uint32_t ws[IDCT_WS_BLOCK];
+      for (int j = 0; j < 8; ++j) {
+        int16_t zz8[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+        int32_t q8[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+        if (8 * j < k) {
+          memcpy(zz8, coefs + (size_t)cta[IDCT_CTA_COEF] + (size_t)(local * k + 8 * j), 16);
+          memcpy(q8, qtabs + (size_t)cta[IDCT_CTA_QTAB] * 64 + 8 * j, 32);
+        }
+        idct_stage_chunk(zz8, q8, zz_to_ws + 8 * j, ws);
+      }
+      for (int col = 0; col < 8; ++col) idct_column_ws(ws, col, narrow);
+      for (int r = 0; r < 8; ++r) {
+        uint32_t px[2];
+        idct_row_ws(ws, r, px);
+        memcpy(planes + idct_block_row_at(cta, local, r), px, 8);
+      }
+    }
+  }
+}
+
+// idct_range_limit_u32 of each value beside idct_range_limit of the same
+// value sign-extended: the two forms of the range limit.
+extern "C" void idct_range_limit_host(const uint32_t* x, uint8_t* narrow, uint8_t* wide,
+                                      int n) {
+  for (int i = 0; i < n; ++i) {
+    narrow[i] = (uint8_t)idct_range_limit_u32(x[i]);
+    wide[i] = idct_range_limit((int64_t)(int32_t)x[i]);
+  }
+}
+
+// One pass over 8 values in 64 bits, descaled by n bits, in place. Twice a
+// unit vector with n = 1 gives the pass's matrix column, from which the
+// tests take IDCT_PASS_L1.
+extern "C" void idct_pass_host(int64_t* v, int n) { idct_islow_pass(v, n); }
+
+// The batched colour kernel as the card's grid splits it: per tile, the
+// CTAs across the widest tile and down the band, each thread's octet
+// through ycc_octet_by_layout (the specialisation for the tile's sampling).
+extern "C" void ycc_rgba_batch_host(const uint8_t* planes, const int32_t* tiles, int n_tiles,
+                                    int max_w, uint8_t* out, long long out_stride, int h) {
+  const int ctas_x = ((max_w + 7) / 8 + YCC_CTA_OCTETS - 1) / YCC_CTA_OCTETS;
+  const int ctas_y = (h + YCC_CTA_ROWS - 1) / YCC_CTA_ROWS;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int32_t* tile = tiles + (size_t)t * YCC_TILE_COLS;
+    const int n_comp = tile[YCC_TILE_NCOMP], w = tile[YCC_TILE_W];
+    YccComp comps[3];
+    for (int i = 0; i < 3; ++i) comps[i] = ycc_tile_comp(planes, tile, i < n_comp ? i : 0);
+    for (int cta = 0; cta < ctas_x * ctas_y; ++cta) {
+      for (int thread = 0; thread < YCC_CTA_OCTETS * YCC_CTA_ROWS; ++thread) {
+        const int x = 8 * ((cta % ctas_x) * YCC_CTA_OCTETS + thread % YCC_CTA_OCTETS);
+        const int y = (cta / ctas_x) * YCC_CTA_ROWS + thread / YCC_CTA_OCTETS;
+        if (x >= w || y >= h) continue;
+        const int n = w - x < 8 ? w - x : 8;
+        uint32_t px[8];
+        ycc_octet_by_layout(comps, n_comp, y, x, n, px);
+        memcpy(out + (size_t)y * (size_t)out_stride + (size_t)(tile[YCC_TILE_X0] + x) * 4, px,
+               (size_t)n * 4);
+      }
+    }
+  }
+}
+
 // Eight pixels from p, ch bytes apart, as the kernel's byte loads.
 static void fdct_load8(const uint8_t* p, int ch, int32_t r[8], int32_t g[8], int32_t b[8]) {
   for (int i = 0; i < 8; ++i) {

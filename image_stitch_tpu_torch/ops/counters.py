@@ -14,7 +14,10 @@ class EncodeCounters:
     device budget. PNG (``ops.device.TorchBackend``): bands filtered.
     Positioned compositing (``ops.composite_device.DeviceCompositor``):
     bands blended on the device, and bands replayed through the host oracle
-    on an exact rational tie."""
+    on an exact rational tie. JPEG tiles decoded by the device tier
+    (``core._grid_canvas_bands``): decodes counted per tile and band, and
+    the bands decoded whole into a band tensor on the device (one upload and
+    two launches each, whatever the number of tiles)."""
 
     bands: int = 0
     repacks: int = 0
@@ -22,3 +25,5 @@ class EncodeCounters:
     png_bands: int = 0
     composite_bands_on_device: int = 0
     composite_fallback_bands: int = 0
+    decode_tile_bands: int = 0
+    decode_bands_on_device: int = 0

@@ -16,8 +16,23 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..errors import StitchError
 from .counters import EncodeCounters
 from .kernels import fdct_quant, filter_select, png_bytes
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``device`` as a torch.device; "cuda" without a usable card raises
+    instead of running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise StitchError(
+            f"device={str(device)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run the plain torch versions"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise StitchError(f"Unsupported device: {device}")
+    return dev
 
 
 def jpeg_quantize(band: torch.Tensor, luma_q: torch.Tensor, chroma_q: torch.Tensor):

@@ -11,9 +11,11 @@
 - ``idct_dequant`` (csrc/idct.cu) and ``ycc_rgba`` (csrc/ycc.cu) replace
   the JPEG band decode program, ``ops/jpeg_idct_device.py::
   decode_plane_trace`` and the upsampling and colour of
-  ``codecs/jpeg/device_decoder.py::_decode_band_trace``; their plain
-  versions are ``ops/jpeg_idct_device.decode_plane`` and
-  ``window_to_rgba``;
+  ``codecs/jpeg/device_decoder.py::_decode_band_trace``; each kernel takes a
+  table of windows, so ``idct_dequant_batch`` and ``ycc_rgba_batch`` decode
+  every tile of a band in one launch each, and the single-window calls are
+  batches of one; their plain versions are loops of
+  ``ops/jpeg_idct_device.decode_plane`` and ``window_to_rgba``;
 - ``fdct_quant`` (csrc/fdct_quant.cu) replaces the quantize programs
   ``ops/device.py::jpeg_quantize_trace`` and ``jpeg_quantize_420_trace``
   (plain: ``ops/jpeg_dct.band_to_blocks_islow`` and ``_420``);
@@ -41,13 +43,14 @@ one to the other. ``<wrapper>.launches`` counts kernel launches.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from .._build import load_cuda_kernels
+from ..codecs.jpeg.tables import ZIGZAG
 from .jpeg_dct import band_to_blocks_islow, band_to_blocks_islow_420
 from .jpeg_idct_device import decode_plane, window_to_rgba
 
@@ -398,15 +401,244 @@ composite_segments.launches = 0
 # JPEG decode: dequantize and IDCT, then upsampling and colour
 # --------------------------------------------------------------------------- #
 
+# A job of csrc/idct.cu, one (tile, component) window of a band, is a row of
+# the host's job table: first coefficient (in int16 elements), blocks, k,
+# quantizer table, blocks a row, first byte of the plane, flags, 0. The
+# kernel reads the CTA table made from it (csrc/idct.cuh IDCT_CTA_*), a row
+# per CTA of IDCT_CTA_BLOCKS blocks.
+IDCT_JOB_COLS = 8
+IDCT_CTA_COLS = 8
+IDCT_CTA_BLOCKS = 16
+# Flag: the column pass is exact in 32 bits, which it is when every
+# |coefficient * quantizer| of the job is within IDCT_INT32_MAX_DEQ
+# (csrc/idct.cuh proves it).
+IDCT_JOB_INT32 = 1
+IDCT_INT32_MAX_DEQ = 32767
+# A tile of csrc/ycc.cu, one JPEG tile's part of a band: a row of the tile
+# table (csrc/ycc.cuh YCC_TILE_*): components, x0, width, variant, four
+# unused, then per component 8 values: first byte of its plane, the plane's
+# row stride, h_exp, v_exp, r0, w0l, window rows, comp_w.
+YCC_TILE_COLS = 32
+YCC_TILE_COMP = 8
+# The colour kernel's grid is (CTAs of 2 rows down the band, CTAs of 256
+# columns across the widest tile, tiles); the last two are 16-bit.
+YCC_CTA_COLUMNS = 256
+MAX_YCC_TILES = 65535
+# How csrc/ycc.cu stores a tile's whole octets of eight pixels, by the variant
+# number in the tile's row.
+YCC_VARIANTS = ("words", "vec16")
+
+_ZIGZAG = torch.tensor(ZIGZAG, dtype=torch.int64)
+
+
+def idct_job_table(windows: Sequence[Sequence[int]]) -> torch.Tensor:
+    """The job table of ``idct_dequant_batch``, int32 on the CPU.
+    ``windows``: per job (first coefficient in int16 elements, blocks, k,
+    quantizer table, blocks a row, first byte of the plane, 1 if every
+    |coefficient * quantizer| is within ``IDCT_INT32_MAX_DEQ`` else 0)."""
+    jobs = np.zeros((len(windows), IDCT_JOB_COLS), dtype=np.int32)
+    if len(windows):
+        w = np.asarray(windows, dtype=np.int64).reshape(len(windows), 7)
+        jobs[:, :6] = w[:, :6]
+        jobs[:, 6] = np.where(w[:, 6] != 0, IDCT_JOB_INT32, 0)
+    return torch.from_numpy(jobs)
+
+
+def idct_cta_table(jobs: torch.Tensor) -> torch.Tensor:
+    """The table csrc/idct.cu reads, a row per CTA (IDCT_CTA_*): the CTA's
+    first coefficient, its live blocks, k, quantizer table, bx, the first
+    byte of its first block's block row, that block's place in the row,
+    flags. int32 on the CPU; every job's blocks in CTAs of
+    ``IDCT_CTA_BLOCKS``, the jobs one after another."""
+    rows = jobs.numpy().astype(np.int64)
+    off, n, k, qtab, bx, plane, flags = (rows[:, i] for i in range(7))
+    per_job = -(-n // IDCT_CTA_BLOCKS)
+    job = np.repeat(np.arange(len(rows)), per_job)
+    first = np.concatenate([[0], np.cumsum(per_job)[:-1]]) if len(rows) else per_job
+    b0 = (np.arange(len(job)) - first[job]) * IDCT_CTA_BLOCKS  # the CTA's first block
+    ctas = np.stack([
+        off[job] + b0 * k[job], np.minimum(IDCT_CTA_BLOCKS, n[job] - b0), k[job], qtab[job],
+        bx[job], plane[job] + b0 // np.maximum(bx[job], 1) * 64 * bx[job],
+        b0 % np.maximum(bx[job], 1), flags[job]], axis=1) if len(job) else np.zeros((0, 8))
+    return torch.from_numpy(ctas.astype(np.int32))
+
+
+def ycc_variant(x0: int, out_width: int, address: int) -> int:
+    """How csrc/ycc.cu stores the whole octets of a tile at column ``x0`` of a
+    band of ``out_width`` columns that starts at ``address``: two 16 B stores
+    where every octet lies at a 16 B boundary, else eight 4 B stores. An
+    index into ``YCC_VARIANTS``."""
+    return int(x0 % 4 == 0 and out_width % 4 == 0 and address % 16 == 0)
+
+
+def ycc_tile_table(tiles: Sequence[tuple[int, int, Sequence[Sequence[int]]]],
+                   out_width: int, address: int) -> torch.Tensor:
+    """The tile table of ``ycc_rgba_batch``, int32 on the CPU, for a band of
+    ``out_width`` columns at ``address``. ``tiles``: per tile (x0, width,
+    components), the components one or three of (first byte of the plane,
+    row stride, h_exp, v_exp, r0, w0l, window rows, comp_w)."""
+    table = np.zeros((len(tiles), YCC_TILE_COLS), dtype=np.int32)
+    for row, (x0, w, comps) in zip(table, tiles):
+        row[:4] = (len(comps), x0, w, ycc_variant(x0, out_width, address))
+        for i, comp in enumerate(comps[:3]):
+            row[YCC_TILE_COMP + 8 * i : YCC_TILE_COMP + 8 * (i + 1)] = comp
+    return torch.from_numpy(table)
+
+
+def _host_table(table: torch.Tensor, name: str, cols: int) -> np.ndarray:
+    """The host's table as an int64 array, after checking its form."""
+    _check(table, name, torch.int32, 2, torch.device("cpu"))
+    if table.shape[1] != cols:
+        raise ValueError(f"{name}: expected (n, {cols}), got {tuple(table.shape)}")
+    return table.numpy().astype(np.int64)
+
+
+class StagedTable:
+    """A kernel's table that travels to the device inside a larger upload.
+
+    ``source`` is the host table the kernel's wrapper checks (the job table,
+    the tile table), ``rows`` the int32 rows the kernel reads, made from it
+    here and nowhere else. The object writes its rows into the staging bytes
+    (``stage``) and cuts its view out of the uploaded bytes at the same place
+    (``bind``), so the rows on the device are the ones made from the table
+    that was checked: a wrapper takes a staged table only together with the
+    very ``source`` it was made from."""
+
+    def __init__(self, source: torch.Tensor, rows: torch.Tensor):
+        self.source = source
+        self.rows = rows
+        self.device: torch.Tensor | None = None
+        self._at: int | None = None
+
+    @classmethod
+    def for_idct(cls, jobs: torch.Tensor) -> "StagedTable":
+        """The CTA table of ``idct_dequant_batch`` for the job table ``jobs``."""
+        return cls(jobs, idct_cta_table(jobs))
+
+    @classmethod
+    def for_ycc(cls, tiles: torch.Tensor) -> "StagedTable":
+        """The tile table of ``ycc_rgba_batch``, read by the kernel as it is."""
+        return cls(tiles, tiles)
+
+    @property
+    def nbytes(self) -> int:
+        return self.rows.numel() * 4
+
+    def stage(self, staging: np.ndarray, at: int) -> None:
+        """Write the rows into the uint8 staging bytes from offset ``at``, a
+        multiple of 16."""
+        if at % 16:
+            raise ValueError(f"a table staged at byte {at}, off a 16 B boundary")
+        staging[at : at + self.nbytes] = self.rows.numpy().reshape(-1).view(np.uint8)
+        self._at = at
+
+    def bind(self, uploaded: torch.Tensor) -> None:
+        """``uploaded``: the staging bytes where the kernel reads them (their
+        copy on the device; on the CPU the bytes themselves)."""
+        if self._at is None:
+            raise ValueError("the table was not staged")
+        _check(uploaded, "the uploaded bytes", torch.uint8, 1, uploaded.device)
+        if uploaded.numel() < self._at + self.nbytes:
+            raise ValueError("the uploaded bytes end before the table")
+        self.device = (uploaded[self._at : self._at + self.nbytes]
+                       .view(torch.int32).view(self.rows.shape))
+
+
+def _staged_rows(staged: StagedTable, device: torch.device) -> torch.Tensor:
+    """The rows of ``staged`` where the kernel reads them, after checking that
+    they were uploaded to ``device``."""
+    rows = staged.device
+    if rows is None:
+        raise ValueError("the staged table was not uploaded")
+    _check(rows, "the staged table", torch.int32, 2, device)
+    if rows.data_ptr() % 16:
+        raise ValueError("the staged table must start at a 16 B boundary")
+    return rows
+
+
+def idct_dequant_batch_plain(coefs: torch.Tensor, qtabs: torch.Tensor, jobs: torch.Tensor,
+                             planes: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``idct_dequant_batch``: ``decode_plane`` job by
+    job."""
+    zigzag = _ZIGZAG.to(qtabs.device)
+    for off, n, k, qtab, bx, plane, _flags, _ in jobs.tolist():
+        q_nat = torch.empty(64, dtype=torch.int32, device=qtabs.device)
+        q_nat[zigzag] = qtabs[qtab]
+        out = decode_plane(coefs[off : off + n * k].view(n, k), q_nat, bx)
+        planes[plane : plane + n * 64] = out.reshape(-1)
+    return planes
+
+
+def idct_dequant_batch(coefs: torch.Tensor, qtabs: torch.Tensor, jobs: torch.Tensor,
+                       planes: torch.Tensor,
+                       staged: StagedTable | None = None) -> torch.Tensor:
+    """Dequantize and inverse-DCT every window of a band in one launch.
+
+    ``coefs`` (N,) int16: the windows' zigzag-prefix coefficients, each
+    window's blocks one after another, k a block; ``qtabs`` (T, 64) int32:
+    quantizers in zigzag order; ``jobs``: the job table from
+    ``idct_job_table``, on the CPU; ``planes`` (P,) uint8: the plane buffer,
+    where job j's (blocks / bx * 8, bx * 8) samples go from its plane offset
+    on. ``staged``: ``StagedTable.for_idct(jobs)``, uploaded with the
+    coefficients; without it the CTA table is made and uploaded here. A job
+    flagged ``IDCT_JOB_INT32`` states that its |coefficient * quantizer| stay
+    within ``IDCT_INT32_MAX_DEQ``: the card takes its word (reading the
+    coefficients back would stall the stream), the CPU path checks it.
+    Returns ``planes``. Launches csrc/idct.cu for CUDA tensors;
+    ``idct_dequant_batch_plain`` for CPU tensors."""
+    device = planes.device
+    _check(coefs, "coefs", torch.int16, 1, device)
+    _check(qtabs, "qtabs", torch.int32, 2, device)
+    _check(planes, "planes", torch.uint8, 1, device)
+    if qtabs.shape[1] != 64:
+        raise ValueError(f"qtabs: expected (n, 64), got {tuple(qtabs.shape)}")
+    if staged is not None and staged.source is not jobs:
+        raise ValueError("staged: made from another job table")
+    rows = _host_table(jobs, "jobs", IDCT_JOB_COLS)
+    off, n, k, qtab, bx, plane = (rows[:, i] for i in range(6))
+    if ((k < 8) | (k > 64) | (k % 8 != 0)).any():
+        raise ValueError("jobs: k must be a multiple of 8 in [8, 64]")
+    if ((n < 1) | (bx < 1) | (n % np.maximum(bx, 1) != 0)).any():
+        raise ValueError("jobs: the blocks must be whole rows of bx >= 1")
+    if ((off < 0) | (off % 8 != 0) | (off + n * k > coefs.numel())).any():
+        raise ValueError("jobs: coefficients outside the buffer or off a 16 B boundary")
+    if ((plane < 0) | (plane % 16 != 0) | (plane + n * 64 > planes.numel())).any():
+        raise ValueError("jobs: a plane outside the buffer or off a 16 B boundary")
+    if ((qtab < 0) | (qtab >= qtabs.shape[0])).any():
+        raise ValueError("jobs: a quantizer table that is not there")
+    if device.type == "cpu":
+        for o, m, kk, t in rows[rows[:, 6] & IDCT_JOB_INT32 != 0, :4].tolist():
+            peak = int(coefs[o : o + m * kk].to(torch.int32).abs().max())
+            if peak * int(qtabs[t].abs().max()) > IDCT_INT32_MAX_DEQ:
+                raise ValueError("jobs: a job flagged for the 32-bit column pass holds "
+                                 f"|coefficient * quantizer| past {IDCT_INT32_MAX_DEQ}")
+        return idct_dequant_batch_plain(coefs, qtabs, jobs, planes)
+    if device.type != "cuda":
+        raise ValueError(f"idct_dequant: unsupported device {device}")
+    if any(t.data_ptr() % 16 for t in (coefs, qtabs, planes)):
+        raise ValueError("coefs, qtabs and planes must start at 16 B boundaries")
+    n_ctas = int((-(-n // IDCT_CTA_BLOCKS)).sum())
+    if n_ctas == 0:
+        return planes
+    ctas = (idct_cta_table(jobs).to(device) if staged is None
+            else _staged_rows(staged, device))
+    lib = load_cuda_kernels()
+    _launch(lib.idct_dequant_batch_launch, coefs.data_ptr(), qtabs.data_ptr(), ctas.data_ptr(),
+            n_ctas, planes.data_ptr(), _stream(device))
+    idct_dequant.launches += 1
+    return planes
+
 
 def idct_dequant(zz: torch.Tensor, q: torch.Tensor, bx: int) -> torch.Tensor:
-    """Dequantize and inverse-DCT whole block rows of one component.
+    """Dequantize and inverse-DCT whole block rows of one component: a
+    batch of one window.
 
     ``zz`` (n, k) int16: each block's first k coefficients in zigzag order
     (the rest zero), n a multiple of ``bx`` blocks a row; ``q`` (64,) int32
     natural-order quantizers. Returns the (n / bx * 8, bx * 8) uint8
-    samples, range-limited as libjpeg does. Launches csrc/idct.cu for CUDA
-    tensors; ``jpeg_idct_device.decode_plane`` for CPU tensors."""
+    samples, range-limited as libjpeg does. ``idct_dequant.launches`` counts
+    the launches of csrc/idct.cu, by this call and by
+    ``idct_dequant_batch``."""
     device = zz.device
     _check(zz, "zz", torch.int16, 2, device)
     _check(q, "q", torch.int32, 1, device)
@@ -417,37 +649,105 @@ def idct_dequant(zz: torch.Tensor, q: torch.Tensor, bx: int) -> torch.Tensor:
         raise ValueError(f"k = {k} outside [1, 64]")
     if bx < 1 or n % bx:
         raise ValueError(f"{n} blocks are not whole rows of {bx}")
-    if device.type == "cpu":
-        return decode_plane(zz, q, bx)
-    if device.type != "cuda":
-        raise ValueError(f"idct_dequant: unsupported device {device}")
-    out = torch.empty((n // bx * 8, bx * 8), dtype=torch.uint8, device=device)
-    if n == 0:
-        return out
-    lib = load_cuda_kernels()
-    _launch(lib.idct_dequant_launch, zz.data_ptr(), n, k, q.data_ptr(), bx, out.data_ptr(),
-            _stream(device))
-    idct_dequant.launches += 1
-    return out
+    if k % 8:  # coefficients past k are zero: so are the ones padded here
+        zz = torch.nn.functional.pad(zz, (0, -k % 8))
+    out = torch.empty(n * 64, dtype=torch.uint8, device=device)
+    if n:
+        narrow = (int(zz.to(torch.int32).abs().max()) * int(q.abs().max())
+                  <= IDCT_INT32_MAX_DEQ)
+        jobs = idct_job_table([(0, n, zz.shape[1], 0, bx, 0, narrow)])
+        idct_dequant_batch(zz.reshape(-1), q[_ZIGZAG.to(device)].view(1, 64), jobs, out)
+    return out.view(n // bx * 8, bx * 8)
 
 
 idct_dequant.launches = 0
 
-# Largest band the colour kernel takes (its rows are the grid's y axis).
-MAX_YCC_ROWS = 65535
+
+def ycc_rgba_batch_plain(planes: torch.Tensor, tiles: torch.Tensor,
+                         out: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``ycc_rgba_batch``: ``window_to_rgba`` tile by
+    tile, each plane a 2-D view of the plane buffer."""
+    for row in tiles.tolist():
+        n_comp, x0, w = row[:3]
+        views, geoms = [], []
+        for i in range(n_comp):
+            plane, stride, h_exp, v_exp, r0, w0l, hw, comp_w = (
+                row[YCC_TILE_COMP + 8 * i : YCC_TILE_COMP + 8 * (i + 1)])
+            views.append(planes[plane : plane + (w0l + hw) * stride].view(w0l + hw, stride))
+            geoms.append((h_exp, v_exp, r0, w0l, w0l + hw, comp_w))
+        out[:, x0 : x0 + w] = window_to_rgba(views, geoms, out.shape[0], w)
+    return out
+
+
+def ycc_rgba_batch(planes: torch.Tensor, tiles: torch.Tensor, out: torch.Tensor,
+                   staged: StagedTable | None = None) -> torch.Tensor:
+    """Crop, upsample and colour-convert every tile of a band in one launch.
+
+    ``planes`` (P,) uint8: the band's plane buffer, as ``idct_dequant_batch``
+    fills it; ``tiles``: the tile table from ``ycc_tile_table``, on the CPU;
+    ``out``: the (h, W, 4) uint8 band, whose columns [x0, x0 + width) get
+    each tile's RGBA, alpha 255. ``staged``: ``StagedTable.for_ycc(tiles)``,
+    uploaded with the planes' coefficients; without it the table is uploaded
+    here. Returns ``out``. Launches
+    csrc/ycc.cu for CUDA tensors; ``ycc_rgba_batch_plain`` for CPU
+    tensors."""
+    device = out.device
+    _check(out, "out", torch.uint8, 3, device)
+    _check(planes, "planes", torch.uint8, 1, device)
+    h, w_out, c = out.shape
+    if c != 4:
+        raise ValueError(f"out: expected (h, W, 4), got {tuple(out.shape)}")
+    if staged is not None and staged.source is not tiles:
+        raise ValueError("staged: made from another tile table")
+    rows = _host_table(tiles, "tiles", YCC_TILE_COLS)
+    n_comp, x0, w, variant = rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3]
+    if (~np.isin(n_comp, (1, 3))).any():
+        raise ValueError("tiles: expected 1 or 3 components")
+    if ((x0 < 0) | (w < 0) | (x0 + w > w_out)).any():
+        raise ValueError(f"tiles: columns outside the band's {w_out}")
+    vec16 = variant == 1
+    if (~np.isin(variant, (0, 1))).any() or (
+            vec16.any() and (w_out % 4 or out.data_ptr() % 16 or (x0[vec16] % 4).any())):
+        raise ValueError("tiles: a store variant the band or the tile's x0 does not allow")
+    for i in range(3):
+        live = n_comp > i
+        plane, stride, h_exp, v_exp, r0, w0l, hw, comp_w = (
+            rows[live, YCC_TILE_COMP + 8 * i + j] for j in range(8))
+        if ((h_exp < 1) | (v_exp < 1) | (r0 < 0) | (w0l < 0) | (hw < 0) | (comp_w < 1)
+                | (stride < comp_w) | (hw * v_exp < r0 + h) | (comp_w * h_exp < w[live])
+                | (plane < 0) | (plane + (w0l + hw) * stride > planes.numel())).any():
+            raise ValueError(f"tiles: a window of component {i} does not cover its tile's "
+                             f"{h} rows, or lies outside the plane buffer")
+    if device.type == "cpu":
+        return ycc_rgba_batch_plain(planes, tiles, out)
+    if device.type != "cuda":
+        raise ValueError(f"ycc_rgba: unsupported device {device}")
+    max_w = int(w.max()) if len(w) else 0
+    if len(w) > MAX_YCC_TILES or max_w > MAX_YCC_TILES * YCC_CTA_COLUMNS:
+        raise ValueError(f"{len(w)} tiles up to {max_w} columns wide: the kernel's grid takes "
+                         f"{MAX_YCC_TILES} tiles of {MAX_YCC_TILES * YCC_CTA_COLUMNS} columns")
+    if h == 0 or max_w == 0:
+        return out
+    dev_tiles = tiles.to(device) if staged is None else _staged_rows(staged, device)
+    lib = load_cuda_kernels()
+    _launch(lib.ycc_rgba_batch_launch, planes.data_ptr(), dev_tiles.data_ptr(), len(w), max_w,
+            out.data_ptr(), w_out * 4, h, _stream(device))
+    ycc_rgba.launches += 1
+    return out
 
 
 def ycc_rgba(planes: Sequence[torch.Tensor], geoms: Sequence[tuple[int, ...]],
              out: torch.Tensor, x0: int, width: int) -> torch.Tensor:
-    """Crop, upsample and colour-convert one tile's band into ``out``.
+    """Crop, upsample and colour-convert one tile's band into ``out``: a
+    batch of one tile.
 
     ``planes``: one (gray) or three uint8 planes from ``idct_dequant``;
     ``geoms``: per plane (h_exp, v_exp, r0, w0l, w1l, comp_w), its window
     being rows [w0l, w1l) and columns [0, comp_w), and the band's first row
     its upsampled row r0; ``out``: the (h, W, 4) uint8 band, whose columns
     [x0, x0 + width) get the tile's RGBA, alpha 255. Returns ``out``.
-    Launches csrc/ycc.cu for CUDA tensors;
-    ``jpeg_idct_device.window_to_rgba`` for CPU tensors."""
+    ``ycc_rgba.launches`` counts the launches of csrc/ycc.cu, by this call
+    and by ``ycc_rgba_batch``."""
     device = out.device
     _check(out, "out", torch.uint8, 3, device)
     h, w_out, c = out.shape
@@ -458,7 +758,7 @@ def ycc_rgba(planes: Sequence[torch.Tensor], geoms: Sequence[tuple[int, ...]],
                          f"{len(planes)} and {len(geoms)}")
     if not (0 <= x0 and width >= 0 and x0 + width <= w_out):
         raise ValueError(f"columns [{x0}, {x0 + width}) outside the band's {w_out}")
-    rows = []
+    comps, parts, at = [], [], 0
     for plane, geom in zip(planes, geoms):
         _check(plane, "plane", torch.uint8, 2, device)
         h_exp, v_exp, r0, w0l, w1l, comp_w = (int(g) for g in geom)
@@ -467,22 +767,11 @@ def ycc_rgba(planes: Sequence[torch.Tensor], geoms: Sequence[tuple[int, ...]],
                 or (w1l - w0l) * v_exp < r0 + h or comp_w * h_exp < width):
             raise ValueError(f"window {geom} does not cover {h} x {width} of a plane of "
                              f"{tuple(plane.shape)}")
-        rows += [plane.shape[1], h_exp, v_exp, r0, w0l, w1l - w0l, comp_w]
-    if device.type == "cpu":
-        out[:, x0 : x0 + width] = window_to_rgba(planes, geoms, h, width)
-        return out
-    if device.type != "cuda":
-        raise ValueError(f"ycc_rgba: unsupported device {device}")
-    if h > MAX_YCC_ROWS:
-        raise ValueError(f"bands of {h} rows: the kernel takes at most {MAX_YCC_ROWS}")
-    if h == 0 or width == 0:
-        return out
-    lib = load_cuda_kernels()
-    ptrs = [p.data_ptr() for p in planes] * (3 if len(planes) == 1 else 1)
-    _launch(lib.ycc_rgba_launch, *ptrs[:3], (ctypes.c_int32 * len(rows))(*rows), len(planes),
-            out.data_ptr(), w_out * 4, x0, h, width, _stream(device))
-    ycc_rgba.launches += 1
-    return out
+        comps.append((at, plane.shape[1], h_exp, v_exp, r0, w0l, w1l - w0l, comp_w))
+        parts.append(torch.nn.functional.pad(plane.reshape(-1), (0, -plane.numel() % 16)))
+        at += parts[-1].numel()
+    tiles = ycc_tile_table([(x0, width, comps)], w_out, out.data_ptr())
+    return ycc_rgba_batch(torch.cat(parts), tiles, out)
 
 
 ycc_rgba.launches = 0

@@ -173,3 +173,118 @@ def test_default_device_raises_without_a_gpu(call):
         warnings.simplefilter("ignore", DeprecationWarning)
         with pytest.raises(Exception, match="(?i)cuda"):
             call(grid_opts())
+
+
+# --------------------------------------------------------------------------- #
+# JpegEncoder, encode_jpeg and the root re-exports
+# --------------------------------------------------------------------------- #
+
+# (width, height): on and off the 8- and 16-pixel MCU grids.
+ENCODER_SIZES = [(32, 32), (37, 29), (50, 45), (8, 3)]
+
+
+def rgba_image(width: int, height: int) -> np.ndarray:
+    return np.random.default_rng(width * 1000 + height).integers(
+        0, 256, (height, width, 4), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("sampling", ["444", "420"])
+@pytest.mark.parametrize("width,height", ENCODER_SIZES)
+def test_encode_jpeg_matches_jax_package(width, height, sampling):
+    rgba = rgba_image(width, height)
+    want = image_stitch_tpu.encode_jpeg(rgba, width, height, 85, "numpy", sampling)
+    assert port.encode_jpeg(rgba, width, height, 85, "torch", sampling, device="cpu") == want
+    assert port.encode_jpeg(rgba, width, height, sampling=sampling, device="cpu") == want
+
+
+@pytest.mark.parametrize("sampling,quality", [("444", 85), ("420", 60), ("444", 100)])
+@pytest.mark.parametrize("width,height", ENCODER_SIZES[:3])
+def test_jpeg_encoder_strips_and_buffer_match_jax_package(width, height, sampling, quality):
+    """``header`` / ``encode_strip`` (8-row strips as bytes, the last one
+    short) / ``finish``, and ``encode_to_buffer``: the JAX package's bytes.
+    The restart interval is 0, so this is the carried stream."""
+    rgba = rgba_image(width, height)
+
+    def by_strips(enc) -> bytes:
+        out = b"".join(enc.header())
+        for y in range(0, height, 8):
+            out += b"".join(enc.encode_strip(rgba[y : y + 8].tobytes()))
+        return out + b"".join(enc.finish())
+
+    ref = image_stitch_tpu.JpegEncoder(width, height, quality, "numpy", sampling)
+    want = by_strips(ref)
+    counters = port.EncodeCounters()
+    enc = port.JpegEncoder(width, height, quality, "torch", sampling, device="cpu",
+                           counters=counters)
+    assert (enc.width, enc.height, enc.quality) == (ref.width, ref.height, ref.quality)
+    assert by_strips(enc) == want
+    assert counters.bands > 0
+    assert list(enc.finish()) == []  # finished: nothing more
+    whole = port.JpegEncoder(width, height, quality, sampling=sampling, device="cpu")
+    assert whole.encode_to_buffer(rgba.tobytes()) == want
+    assert image_stitch_tpu.JpegEncoder(width, height, quality, "numpy",
+                                        sampling).encode_to_buffer(rgba.tobytes()) == want
+
+
+def test_streaming_encoder_takes_strip_bytes():
+    rgba = rgba_image(24, 16)
+    enc = port.TorchStreamingJpegEncoder(24, 16, device="cpu")
+    out = b"".join(enc.encode_strip_bytes(rgba.tobytes())) + b"".join(enc.finish())
+    assert out == image_stitch_tpu.encode_jpeg(rgba, 24, 16, 85, "numpy")
+
+
+@pytest.mark.parametrize("backend", ["numpy", "jax", "native"])
+def test_jpeg_encoder_refuses_other_backends(backend):
+    with pytest.raises(port.StitchError, match="not a path of image_stitch_tpu_torch"):
+        port.JpegEncoder(16, 16, 85, backend, device="cpu")
+    with pytest.raises(port.StitchError, match="not a path of image_stitch_tpu_torch"):
+        port.encode_jpeg(rgba_image(16, 16), 16, 16, 85, backend, device="cpu")
+
+
+def test_jpeg_encoder_validates_as_the_jax_package():
+    for args in ((0, 8), (8, 0)):
+        with pytest.raises(port.StitchError):
+            port.JpegEncoder(*args, device="cpu")
+    with pytest.raises(port.StitchError):
+        port.JpegEncoder(8, 8, 101, device="cpu")
+    with pytest.raises(port.StitchError):
+        port.JpegEncoder(8, 8, 85, "auto", "422", device="cpu")
+
+
+@pytest.mark.parametrize("call", [
+    lambda: port.JpegEncoder(16, 16),
+    lambda: port.encode_jpeg(rgba_image(16, 16), 16, 16),
+], ids=["JpegEncoder", "encode_jpeg"])
+def test_encoder_default_device_raises_without_a_gpu(call):
+    if torch.cuda.is_available():
+        pytest.skip("checks the error without a GPU")
+    with pytest.raises(port.StitchError, match="(?i)cuda"):
+        call()
+
+
+RENAMED = {"CoreStreamingConcatenator": "TorchStreamingConcatenator",
+           "StreamingJpegEncoder": "TorchStreamingJpegEncoder"}
+
+
+@pytest.mark.parametrize("name", image_stitch_tpu.__all__)
+def test_root_export(name):
+    """Every name the JAX package's root exports is exported by the port's
+    root, from the port's own modules; exactly two classes carry the port's
+    names instead."""
+    if name in RENAMED:
+        assert name not in port.__all__ and not hasattr(port, name)
+        name = RENAMED[name]
+    assert name in port.__all__
+    obj = getattr(port, name)
+    module = getattr(obj, "__module__", None)
+    if isinstance(module, str) and not isinstance(obj, (int, str, bytes, tuple, list)):
+        assert not module.startswith("image_stitch_tpu."), module
+    ref = getattr(image_stitch_tpu, {v: k for k, v in RENAMED.items()}.get(name, name))
+    assert callable(obj) == callable(ref) and type(obj).__name__ == type(ref).__name__
+
+
+def test_root_exports_only_add_the_ports_names():
+    extra = set(port.__all__) - set(image_stitch_tpu.__all__)
+    assert extra == {"TorchStreamingConcatenator", "TorchStreamingJpegEncoder", "EncodeCounters"}
+    assert set(image_stitch_tpu.__all__) - set(port.__all__) == set(RENAMED)
+    assert port.__version__ == image_stitch_tpu.__version__ and port.crc32 is port.png_crc32

@@ -287,9 +287,10 @@ def test_idct_dequant_matches_plain(cuda, k, quality):
 @pytest.mark.parametrize("size,band", [((45, 67), (0, 16)), ((45, 67), (16, 45)),
                                        ((9, 6), (3, 9)), ((9, 4), (1, 8))])
 def test_device_decoder_matches_cpu(cuda, sampling, size, band):
-    """decode_band on the card (idct_dequant per component, then ycc_rgba
-    into a wider band at an x offset) against the CPU decode: bands at the
-    image's edges and inside it, comp_w of 2 and 3."""
+    """decode_band on the card (a band of one tile: one upload, one
+    idct_dequant launch for its components, one ycc_rgba launch into a wider
+    band at an x offset) against the CPU decode: bands at the image's edges
+    and inside it, comp_w of 2 and 3."""
     from image_stitch_tpu_torch.codecs.jpeg.device_decoder import DeviceJpegDecoder
 
     rng = np.random.default_rng(size[1])
@@ -303,7 +304,64 @@ def test_device_decoder_matches_cpu(cuda, sampling, size, band):
     want = DeviceJpegDecoder(data).decode_band(y0, y1)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(out[:, 4 : 4 + size[1]].cpu().numpy(), want)
-    assert (K.idct_dequant.launches, K.ycc_rgba.launches) == (counts[0] + 3, counts[1] + 1)
+    assert (K.idct_dequant.launches, K.ycc_rgba.launches) == (counts[0] + 1, counts[1] + 1)
+
+
+@pytest.mark.parametrize("width_off_4", [False, True])
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_batched_decode_matches_plain(cuda, seed, width_off_4):
+    """A mixed band (every sampling, K 8 to 64, both column passes, x0 % 4
+    of 0..3, ragged widths, image edges) through idct_dequant_batch and
+    ycc_rgba_batch on the card, the tables uploaded by the wrappers: planes
+    and band equal the batched plain versions'; one launch each."""
+    from image_stitch_tpu_torch.testing import mixed_band
+
+    band = mixed_band(seed, width_off_4)
+    jobs = K.idct_job_table(band.windows)
+    coefs, qtabs = (torch.from_numpy(a).to(cuda) for a in (band.coefs, band.qtabs))
+    out = torch.full((band.h, band.width, 4), 9, dtype=torch.uint8, device=cuda)
+    tiles = K.ycc_tile_table(band.tiles, band.width, out.data_ptr())
+    assert set(tiles[:, 3].tolist()) == ({0} if width_off_4 else {0, 1})
+    counts = K.idct_dequant.launches, K.ycc_rgba.launches
+    planes = K.idct_dequant_batch(coefs, qtabs, jobs,
+                                  torch.zeros(band.plane_bytes, dtype=torch.uint8, device=cuda))
+    K.ycc_rgba_batch(planes, tiles, out)
+    torch.cuda.synchronize()
+    assert (K.idct_dequant.launches, K.ycc_rgba.launches) == (counts[0] + 1, counts[1] + 1)
+    want_planes = K.idct_dequant_batch_plain(coefs, qtabs, jobs, torch.zeros_like(planes))
+    assert torch.equal(planes, want_planes)
+    want = K.ycc_rgba_batch_plain(want_planes, tiles, torch.full_like(out, 9))
+    assert torch.equal(out, want)
+
+
+def test_decode_tiles_band_matches_cpu(cuda):
+    """Four tiles of different sampling, K and quantizers in one band,
+    through decode_tiles_band on the card, three bands in a row through a
+    ring of two staging buffers: one launch of each kernel a band, the
+    bytes of the CPU decode."""
+    from image_stitch_tpu_torch.codecs.jpeg.device_decoder import (
+        BandStaging, DeviceJpegDecoder, decode_tiles_band)
+
+    rng = np.random.default_rng(8)
+    smooth = np.tile(np.linspace(30, 220, 40)[None, :, None], (48, 1, 3)).astype(np.uint8)
+    datas = [jpeg_bytes(rng.integers(0, 256, (48, 56, 3), dtype=np.uint8), "420", 88),
+             jpeg_bytes(rng.integers(0, 256, (48, 33, 3), dtype=np.uint8), "444", 60),
+             jpeg_bytes(smooth, "420", 95),
+             jpeg_bytes(rng.integers(0, 256, (48, 24, 3), dtype=np.uint8), "420", 30)]
+    x0s = [0, 56, 89, 129]
+    ring_gpu, ring_cpu = BandStaging(cuda), BandStaging("cpu")
+    on_gpu = [DeviceJpegDecoder(d, cuda) for d in datas]
+    on_cpu = [DeviceJpegDecoder(d) for d in datas]
+    assert len({tuple(d._k) for d in on_cpu}) > 1
+    counts = K.idct_dequant.launches, K.ycc_rgba.launches
+    for y0 in (0, 16, 32):
+        got = torch.zeros((16, 153, 4), dtype=torch.uint8, device=cuda)
+        want = torch.zeros((16, 153, 4), dtype=torch.uint8)
+        decode_tiles_band([(d, y0, y0 + 16, x) for d, x in zip(on_gpu, x0s)], got, ring_gpu)
+        decode_tiles_band([(d, y0, y0 + 16, x) for d, x in zip(on_cpu, x0s)], want, ring_cpu)
+        assert torch.equal(got.cpu(), want)
+    assert (K.idct_dequant.launches, K.ycc_rgba.launches) == (counts[0] + 3, counts[1] + 3)
+    assert ring_gpu.waits == 1  # the third band took the first band's buffer again
 
 
 @pytest.mark.parametrize("sampling,channels", [("444", 3), ("444", 4), ("420", 4)])
@@ -545,6 +603,7 @@ def test_jpeg_tiles_grid_matches_host(cuda, ri, sampling):
     got = image_stitch_tpu_torch.concat_to_buffer(opts, device=cuda)
     assert got == host(opts)
     after = [w.launches for w in (K.idct_dequant, K.ycc_rgba, K.fdct_quant, K.symbol_streams)]
-    # 2 tile rows of 2 bands, 2 tiles a band, 3 components a tile.
-    assert after[0] - counts[0] == 24 and after[1] - counts[1] == 8
+    # 2 tile rows of 2 bands: one launch of each decode kernel a band,
+    # whatever the tiles and components.
+    assert after[0] - counts[0] == 4 and after[1] - counts[1] == 4
     assert after[2] > counts[2] and after[3] > counts[3]

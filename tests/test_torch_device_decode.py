@@ -4,6 +4,9 @@
   ``idct_dequant`` and ``ycc_rgba``) against the JAX package's
   ``DeviceJpegDecoder`` and the owned host decoder: 4:4:4, 4:2:2, 4:2:0,
   gray, odd sizes, any band split, progressive, K truncation.
+- ``decode_tiles_band`` (a band of several tiles through one staged upload
+  and one call of each batched kernel) against per-tile ``decode_band`` and
+  the owned decoder: tiles of different K, quantizer tables and samplings.
 - ``concat_to_buffer(..., device="cpu")`` on grids of JPEG tiles to JPEG
   against ``image_stitch_tpu.concat_to_buffer`` with the numpy and jax
   backends: the fast path (counted), bands crossing tile boundaries, mixed
@@ -30,6 +33,7 @@ import image_stitch_tpu
 import image_stitch_tpu_torch
 from image_stitch_tpu.codecs.jpeg.device_decoder import DeviceJpegDecoder as JaxDecoder
 from image_stitch_tpu.codecs.jpeg.owned_decoder import decode_baseline_jpeg
+from image_stitch_tpu_torch.codecs.jpeg import device_decoder
 from image_stitch_tpu_torch.codecs.jpeg import tables as T
 from image_stitch_tpu_torch.codecs.jpeg.device_decoder import DeviceJpegDecoder
 from image_stitch_tpu_torch.codecs.jpeg.encoder import TorchStreamingJpegEncoder
@@ -132,6 +136,111 @@ def test_zigzag_prefix_truncation():
 
 
 # --------------------------------------------------------------------------- #
+# decode_tiles_band: a band of several tiles at once
+# --------------------------------------------------------------------------- #
+
+
+def tile_row() -> list[bytes]:
+    """Four tiles 48 rows high that differ in sampling, quality (so in
+    quantizer tables) and content (so in K): noise, a smooth ramp, gray."""
+    rng = np.random.default_rng(21)
+    ramp = np.tile(np.linspace(30, 220, 40, dtype=np.float32)[None, :, None],
+                   (48, 1, 3)).astype(np.uint8)
+    gray = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (48, 21), dtype=np.uint8), mode="L").save(
+        gray, "JPEG", quality=80)
+    return [jpeg(photo(48, 56, seed=1), 88, "420"), jpeg(photo(48, 33, seed=2), 60, "444"),
+            jpeg(ramp, 95, "420"), gray.getvalue(), jpeg(photo(48, 30, seed=3), 30, "422")]
+
+
+@pytest.mark.parametrize("band_h", [16, 5, 48])
+def test_band_of_tiles_equals_per_tile_decode(band_h):
+    """decode_tiles_band over a row of tiles with different K, quantizer
+    tables and samplings, bands in a row through a ring of two staging
+    buffers: each tile's columns equal its own decode_band and the owned
+    host decoder; what lies between the tiles is not touched."""
+    datas = tile_row()
+    decs = [DeviceJpegDecoder(d) for d in datas]
+    assert len({tuple(d._k) for d in decs}) > 2
+    assert len({q.tobytes() for d in decs for q in d._qtabs_zz}) > 4
+    x0s, at = [], 3
+    for d in decs:
+        x0s.append(at)
+        at += d.width + 2
+    ring = device_decoder.BandStaging("cpu")
+    whole = [owned_rgba(d) for d in datas]
+    for y0 in range(0, 48, band_h):
+        y1 = min(48, y0 + band_h)
+        out = torch.full((y1 - y0, at, 4), 5, dtype=torch.uint8)
+        got = device_decoder.decode_tiles_band(
+            [(d, y0, y1, x0) for d, x0 in zip(decs, x0s)], out, ring)
+        assert got is out
+        covered = np.zeros(at, bool)
+        for d, x0, want in zip(decs, x0s, whole):
+            np.testing.assert_array_equal(out[:, x0 : x0 + d.width].numpy(), want[y0:y1])
+            np.testing.assert_array_equal(out[:, x0 : x0 + d.width].numpy(),
+                                          d.decode_band(y0, y1))
+            covered[x0 : x0 + d.width] = True
+        assert (out[:, ~covered] == 5).all()
+
+
+def test_staged_band_holds_each_quantizer_table_once():
+    """The staged band of two copies of one tile beside another: the jobs
+    share quantizer tables, every part starts at a 16 B boundary, and the
+    flags say which column pass each job may take."""
+    datas = tile_row()
+    decs = [DeviceJpegDecoder(datas[0]), DeviceJpegDecoder(datas[0]), DeviceJpegDecoder(datas[1])]
+    out = torch.zeros((16, 200, 4), dtype=torch.uint8)
+    band = device_decoder.stage_tiles_band(
+        [(d, 0, 16, x0) for d, x0 in zip(decs, (0, 56, 112))], out,
+        device_decoder.BandStaging("cpu"))
+    from image_stitch_tpu_torch.ops.kernels import idct_cta_table
+
+    assert band.ctas.source is band.jobs and band.tile_rows.source is band.tiles
+    assert band.jobs.shape == (9, 8) and band.tiles.shape == (3, 32)
+    assert band.qtabs.shape == (4, 64)  # luma and chroma of each distinct tile
+    assert band.jobs[:, 3].tolist() == [0, 1, 1, 0, 1, 1, 2, 3, 3]
+    assert (band.jobs[:, 0] % 8 == 0).all() and (band.jobs[:, 5] % 16 == 0).all()
+    assert band.jobs[:, 6].tolist() == [1] * 9  # photo content: the 32-bit column pass
+    # What the kernels read is where the upload put it: the CTA rows made
+    # from the job table, and the tile table itself.
+    assert torch.equal(band.ctas.device, idct_cta_table(band.jobs))
+    assert torch.equal(band.tile_rows.device, band.tiles)
+    assert band.ctas.device.data_ptr() % 16 == band.tile_rows.device.data_ptr() % 16 == 0
+    assert band.plane_bytes == int((band.jobs[:, 1] * 64).sum())
+
+
+def test_staging_ring_and_band_checks():
+    ring = device_decoder.BandStaging("cpu")
+    slots = [ring.acquire(100)[0] for _ in range(4)]
+    assert slots == [0, 1, 0, 1] and ring.waits == 0  # nothing to wait for on the CPU
+    assert ring.acquire(10)[1].numel() >= 100  # a buffer is kept, not shrunk
+    dec = DeviceJpegDecoder(tile_row()[0])
+    with pytest.raises(image_stitch_tpu_torch.StitchError):  # 8 rows into a band of 16
+        device_decoder.decode_tiles_band([(dec, 0, 8, 0)], torch.zeros((16, 56, 4),
+                                         dtype=torch.uint8), ring)
+    with pytest.raises(image_stitch_tpu_torch.StitchError):  # a band on another device
+        device_decoder.decode_tiles_band([(dec, 0, 16, 0)], torch.zeros(
+            (16, 56, 4), dtype=torch.uint8, device="meta"), ring)
+
+
+def test_hostile_coefficients_take_the_64_bit_column_pass():
+    """|coef * q| past the 32-bit column pass's bound: the job's flag is
+    off, and the band still equals the owned decoder."""
+    from image_stitch_tpu_torch.ops.kernels import IDCT_INT32_MAX_DEQ
+
+    dc = [min(i, 6) * 2000 for i in range(16)]
+    data = gray_jpeg(dc, np.full(64, 255, np.int64), rows=2)
+    dec = DeviceJpegDecoder(data)
+    assert max(dc) * 255 > IDCT_INT32_MAX_DEQ and dec._narrow == [False]
+    out = torch.zeros((16, 64, 4), dtype=torch.uint8)
+    band = device_decoder.stage_tiles_band([(dec, 0, 16, 0)], out,
+                                           device_decoder.BandStaging("cpu"))
+    assert band.jobs[:, 6].tolist() == [0]
+    np.testing.assert_array_equal(dec.decode_full(), owned_rgba(data))
+
+
+# --------------------------------------------------------------------------- #
 # The grid path
 # --------------------------------------------------------------------------- #
 
@@ -170,15 +279,28 @@ def jax_package(opts, backend: str) -> bytes:
 
 @pytest.fixture
 def decodes(monkeypatch):
-    """Calls of the port's decode_band: (y0, y1, into a band tensor)."""
-    calls = []
-    real = DeviceJpegDecoder.decode_band
+    """The device tier's decodes, one entry per tile and band: (y0, y1, into
+    a band tensor). A band decoded whole by ``decode_tiles_band`` gives an
+    entry per tile, into the band; ``decode_band`` (itself a band of one
+    tile) gives one entry, into a band only when it was handed one."""
+    calls, inside = [], []
+    real_band, real_tiles = DeviceJpegDecoder.decode_band, device_decoder.decode_tiles_band
 
-    def counted(self, y0, y1, return_device=False, out=None, x0=0):
+    def counted_band(self, y0, y1, return_device=False, out=None, x0=0, **kw):
         calls.append((y0, y1, out is not None))
-        return real(self, y0, y1, return_device, out, x0)
+        inside.append(self)
+        try:
+            return real_band(self, y0, y1, return_device, out, x0, **kw)
+        finally:
+            inside.pop()
 
-    monkeypatch.setattr(DeviceJpegDecoder, "decode_band", counted)
+    def counted_tiles(items, out, staging):
+        if not inside:
+            calls.extend((y0, y1, True) for _dec, y0, y1, _x0 in items)
+        return real_tiles(items, out, staging)
+
+    monkeypatch.setattr(DeviceJpegDecoder, "decode_band", counted_band)
+    monkeypatch.setattr(device_decoder, "decode_tiles_band", counted_tiles)
     return calls
 
 
@@ -207,6 +329,26 @@ def test_grid_fast_path_matches_jax(decodes, host_decodes, ri):
     assert got == jax_package(opts, "numpy") == jax_package(opts, "jax")
     assert len(decodes) == 4 * 2 and all(into for _y0, _y1, into in decodes)
     assert not host_decodes
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    assert image_stitch_tpu_torch.concat_to_buffer(opts, device="cpu", counters=counters) == got
+    # 4 bands of 2 tiles: decoded whole, one launch pair a band.
+    assert (counters.decode_tile_bands, counters.decode_bands_on_device) == (8, 4)
+
+
+def test_grid_row_of_unlike_tiles_matches_jax(decodes, host_decodes):
+    """Tile rows whose tiles differ in sampling, quality (quantizer tables)
+    and content (K): one staged band carries them all; the JAX package's
+    bytes."""
+    ramp = np.tile(np.linspace(30, 220, 64, dtype=np.float32)[None, :, None],
+                   (64, 1, 3)).astype(np.uint8)
+    inputs = [jpeg(photo(64, 64, seed=1), 88, "420"), jpeg(photo(64, 64, seed=2), 60, "444"),
+              jpeg(ramp, 95, "420"), jpeg(photo(64, 64, seed=3), 30, "422"),
+              jpeg(ramp[::-1].copy(), 70, "444"), jpeg(photo(64, 64, seed=4), 97, "420")]
+    assert len({tuple(DeviceJpegDecoder(d)._k) for d in inputs}) > 2
+    opts = options(inputs, columns=3, band_height=16)
+    assert port(opts) == jax_package(opts, "numpy")
+    assert len(decodes) == 6 * 4 and all(into for _y0, _y1, into in decodes)
+    assert not host_decodes
 
 
 def test_band_crossing_tile_boundary(decodes, host_decodes):
@@ -224,6 +366,11 @@ def test_mixed_png_jpeg_grid(decodes):
     opts = options(inputs)
     assert port(opts) == jax_package(opts, "numpy")
     assert decodes and not any(into for _y0, _y1, into in decodes)
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    image_stitch_tpu_torch.concat_to_buffer(opts, device="cpu", counters=counters)
+    # A PNG tile beside each JPEG tile: the host plan, the JPEG tiles one
+    # decode_band a band (2 tiles of 2 bands), no band decoded whole.
+    assert (counters.decode_tile_bands, counters.decode_bands_on_device) == (4, 0)
 
 
 def test_duplicate_inputs(decodes):

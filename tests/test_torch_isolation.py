@@ -6,8 +6,10 @@ image_stitch_tpu... import``; relative imports stay inside the port.
 (b) A fresh process imports every module of the port and runs
 ``concat_to_buffer(..., device="cpu")`` to JPEG and to PNG on a 2 x 2 grid,
 and a 2 x 2 grid of JPEG tiles (made by the port's encoder) to JPEG
-through the device-decode path; afterwards no module of
-``image_stitch_tpu`` and no ``jax`` is loaded.
+through the device-decode path, then the command line (``main`` of
+``image_stitch_tpu_torch/__main__.py``) over tile files with ``--device
+cpu``; afterwards no module of ``image_stitch_tpu`` and no ``jax`` is
+loaded.
 """
 
 import ast
@@ -48,6 +50,8 @@ def test_file_imports_nothing_of_the_jax_package(rel):
 def test_port_files_are_listed():
     """The parametrisation above covers the whole package, copies included."""
     for rel in ("image_stitch_tpu_torch/core.py", "image_stitch_tpu_torch/api.py",
+                "image_stitch_tpu_torch/__main__.py", "image_stitch_tpu_torch/__init__.py",
+                "image_stitch_tpu_torch/codecs/jpeg/encoder.py",
                 "image_stitch_tpu_torch/native/__init__.py",
                 "image_stitch_tpu_torch/codecs/png/decoder.py",
                 "image_stitch_tpu_torch/codecs/jpeg/owned_decoder.py"):
@@ -112,15 +116,25 @@ jpeg = port.concat_to_buffer({"inputs": tiles, "layout": {"columns": 2},
 assert jpeg[:2] == b"\\xff\\xd8" and jpeg[-2:] == b"\\xff\\xd9"
 out = port.concat_to_buffer({"inputs": tiles, "layout": {"columns": 2}}, device="cpu")
 assert out[:8] == b"\\x89PNG\\r\\n\\x1a\\n" and out[-8:-4] == b"IEND"
-from image_stitch_tpu_torch.codecs.jpeg.device_decoder import DeviceJpegDecoder
-calls = []
-real = DeviceJpegDecoder.decode_band
-DeviceJpegDecoder.decode_band = lambda self, *a, **k: calls.append(a) or real(self, *a, **k)
 jpegs = [port.concat_to_buffer({"inputs": [t], "layout": {"columns": 1},
                                 "outputFormat": "jpeg"}, device="cpu") for t in tiles]
-out = port.concat_to_buffer({"inputs": jpegs, "layout": {"columns": 2},
-                             "outputFormat": "jpeg"}, device="cpu")
-assert out[:2] == b"\\xff\\xd8" and out[-2:] == b"\\xff\\xd9" and calls
+counters = port.EncodeCounters()
+out = port.concat_to_buffer({"inputs": jpegs, "layout": {"columns": 2}, "bandHeight": 8,
+                             "outputFormat": "jpeg"}, device="cpu", counters=counters)
+assert out[:2] == b"\\xff\\xd8" and out[-2:] == b"\\xff\\xd9"
+assert counters.decode_bands_on_device and counters.decode_tile_bands
+import os, tempfile
+from image_stitch_tpu_torch.__main__ import main
+with tempfile.TemporaryDirectory() as tmp:
+    paths = []
+    for i, t in enumerate(tiles):
+        paths.append(os.path.join(tmp, f"t{i}.png"))
+        with open(paths[-1], "wb") as f:
+            f.write(t)
+    for name in ("out.png", "out.jpg"):
+        assert main([*paths, "--columns", "2", "-o", os.path.join(tmp, name), "--quiet",
+                     "--device", "cpu"]) == 0
+        assert os.path.getsize(os.path.join(tmp, name)) > 100
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("image_stitch_tpu", "jax")))
 """

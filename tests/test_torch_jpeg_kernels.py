@@ -23,6 +23,7 @@ from image_stitch_tpu_torch.ops import jpeg_entropy_device as E
 from image_stitch_tpu_torch.ops import jpeg_idct_device as D
 from image_stitch_tpu_torch.ops import kernels as K
 from image_stitch_tpu_torch.ops.jpeg_dct import quantize_islow
+from image_stitch_tpu_torch.testing import Tile, make_band, mixed_band
 from tests.utils.torch_port import TABLES
 
 torch.set_num_threads(1)
@@ -159,6 +160,283 @@ def test_ycc_colour_axes_exhaustive():
     got = shim_ycc(planes, geoms, np.zeros((4, 256, 4), np.uint8), 0, 256)
     want = D.window_to_rgba([torch.from_numpy(p) for p in planes], geoms, 4, 256)
     np.testing.assert_array_equal(got, want.numpy())
+
+
+# --------------------------------------------------------------------------- #
+# The batched decode: every window and tile of a band through one table
+# --------------------------------------------------------------------------- #
+
+
+def shim_idct_batch(band, jobs) -> np.ndarray:
+    """The shim over the CTA table that the card's kernel reads."""
+    planes = np.zeros(band.plane_bytes, np.uint8)
+    ctas = K.idct_cta_table(jobs).numpy()
+    load_host_shim().idct_dequant_batch_host(_ptr(band.coefs), _ptr(band.qtabs), _ptr(ctas),
+                                             len(ctas), _ptr(planes))
+    return planes
+
+
+def shim_ycc_batch(planes: np.ndarray, tiles, out: np.ndarray) -> np.ndarray:
+    tiles = tiles.numpy()
+    load_host_shim().ycc_rgba_batch_host(_ptr(planes), _ptr(tiles), len(tiles),
+                                         int(tiles[:, 2].max()), _ptr(out), out.shape[1] * 4,
+                                         out.shape[0])
+    return out
+
+
+def batch_tables(band, address: int = 0):
+    return K.idct_job_table(band.windows), K.ycc_tile_table(band.tiles, band.width, address)
+
+
+def loop_of_singles(band, fill: int) -> np.ndarray:
+    """The band through the single-window wrappers, tile by tile."""
+    out = torch.full((band.h, band.width, 4), fill, dtype=torch.uint8)
+    for x0, width, comps in band.singles:
+        planes = [K.idct_dequant(torch.from_numpy(zz), torch.from_numpy(q), bx)
+                  for zz, q, bx, _geom in comps]
+        K.ycc_rgba(planes, [geom for _zz, _q, _bx, geom in comps], out, x0, width)
+    return out.numpy()
+
+
+@pytest.mark.parametrize("width_off_4", [False, True])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_batched_bodies_match_plain_and_single_windows(seed, width_off_4):
+    """A mixed table (K 8, 24, 64; 4:4:4, h2v1, h2v2, gray, 4:1:1, 4:4:0;
+    comp_w 2 and 3; top and bottom image edges; x0 % 4 of 0..3; widths off
+    4; coefficients at the int16 extremes under 16-bit quantizers beside
+    small ones): the shim's batched bodies, the batched plain versions and a
+    loop of the single-window calls give the same planes and the same band;
+    what lies between the tiles is not touched. Tolerance: none."""
+    band = mixed_band(seed, width_off_4)
+    jobs, tiles = batch_tables(band)
+    flags = jobs[:, 6].tolist()
+    assert 0 in flags and K.IDCT_JOB_INT32 in flags  # both column passes run
+    variants = tiles[:, 3].tolist()
+    assert set(variants) == ({0} if width_off_4 else {0, 1})
+
+    planes = shim_idct_batch(band, jobs)
+    want_planes = K.idct_dequant_batch(
+        torch.from_numpy(band.coefs), torch.from_numpy(band.qtabs), jobs,
+        torch.zeros(band.plane_bytes, dtype=torch.uint8))
+    np.testing.assert_array_equal(planes, want_planes.numpy())
+
+    out = shim_ycc_batch(planes, tiles, np.full((band.h, band.width, 4), 7, np.uint8))
+    want = K.ycc_rgba_batch(want_planes, tiles,
+                            torch.full((band.h, band.width, 4), 7, dtype=torch.uint8))
+    np.testing.assert_array_equal(out, want.numpy())
+    np.testing.assert_array_equal(out, loop_of_singles(band, 7))
+    covered = np.zeros(band.width, bool)
+    for x0, width, _comps in band.tiles:
+        covered[x0 : x0 + width] = True
+    assert (out[:, ~covered] == 7).all() and (out[:, covered, 3] == 255).all()
+
+
+def test_batched_bodies_on_a_table_of_one_job():
+    """One gray tile: one job, one tile, against the single-window shim
+    bodies (the int64 IDCT and the pixel-at-a-time colour)."""
+    rng = np.random.default_rng(3)
+    band = make_band(rng, [Tile("444", 19, 16, 0, 16, ks=(40,), gray=True)], [1], 21)
+    jobs, tiles = batch_tables(band)
+    assert jobs.shape == (1, K.IDCT_JOB_COLS) and tiles.shape == (1, K.YCC_TILE_COLS)
+    planes = shim_idct_batch(band, jobs)
+    zz, q, bx, geom = band.singles[0][2][0]
+    single = shim_idct(zz, q, bx)
+    np.testing.assert_array_equal(planes.reshape(single.shape), single)
+    out = shim_ycc_batch(planes, tiles, np.zeros((16, 21, 4), np.uint8))
+    np.testing.assert_array_equal(out, shim_ycc([single], [geom], np.zeros((16, 21, 4), np.uint8),
+                                                1, 19))
+
+
+@pytest.mark.parametrize("narrow", [True, False])
+def test_both_column_passes_at_the_edge_of_the_32_bit_bound(narrow):
+    """|coefficient * quantizer| = IDCT_INT32_MAX_DEQ in every position, all
+    of one sign and with alternating signs (the largest sums the pass can
+    make): the 32-bit column pass, which the flag allows up to here, and the
+    64-bit one give the plain version's samples; one past the bound only the
+    64-bit pass is asked."""
+    rng = np.random.default_rng(4)
+    m = K.IDCT_INT32_MAX_DEQ
+    bx = 8
+    zz = np.full((2 * bx, 64), m if narrow else m + 1, np.int64)
+    zz[1] *= -1
+    zz[2, ::2] *= -1
+    zz[3] *= np.where(rng.random(64) < 0.5, -1, 1)
+    for b in range(4, 2 * bx):  # the sign pattern of each row of the pass's matrix
+        zz[b] *= np.where(rng.random(64) < 0.5, -1, 1)
+    zz[:, 0] = np.clip(zz[:, 0], -(1 << 15), (1 << 15) - 1)
+    zz = np.clip(zz, -(1 << 15), (1 << 15) - 1).astype(np.int16)
+    q = np.ones(64, np.int32)
+    want = D.decode_plane(torch.from_numpy(zz), torch.from_numpy(q), bx).numpy()
+    for flag in ([1, 0] if narrow else [0]):
+        ctas = K.idct_cta_table(K.idct_job_table([(0, 2 * bx, 64, 0, bx, 0, flag)])).numpy()
+        planes = np.zeros(2 * bx * 64, np.uint8)
+        load_host_shim().idct_dequant_batch_host(_ptr(zz), _ptr(q), _ptr(ctas), len(ctas),
+                                                 _ptr(planes))
+        np.testing.assert_array_equal(planes.reshape(want.shape), want)
+
+
+def test_a_job_past_the_bound_must_have_its_flag_cleared():
+    """Full-range coefficients under a quantizer of 255, far past the bound:
+    the 32-bit column pass overflows and gives other samples, which is why
+    the flag is the host's to clear. The single-window wrapper clears it by
+    itself; the batched wrapper's CPU path refuses a set flag on such a job
+    and takes a cleared one."""
+    rng = np.random.default_rng(6)
+    bx = 4
+    zz = rng.integers(-(1 << 15), 1 << 15, (2 * bx, 64)).astype(np.int16)
+    q = np.full(64, 255, np.int32)
+    want = D.decode_plane(torch.from_numpy(zz), torch.from_numpy(q), bx).numpy()
+    got = {}
+    for flag in (0, 1):
+        ctas = K.idct_cta_table(K.idct_job_table([(0, 2 * bx, 64, 0, bx, 0, flag)])).numpy()
+        got[flag] = np.zeros(2 * bx * 64, np.uint8)
+        load_host_shim().idct_dequant_batch_host(_ptr(zz), _ptr(q), _ptr(ctas), len(ctas),
+                                                 _ptr(got[flag]))
+    np.testing.assert_array_equal(got[0].reshape(want.shape), want)
+    assert (got[1].reshape(want.shape) != want).any()
+    np.testing.assert_array_equal(
+        K.idct_dequant(torch.from_numpy(zz), torch.from_numpy(q), bx).numpy(), want)
+    coefs, qtabs = torch.from_numpy(zz).reshape(-1), torch.from_numpy(q).view(1, 64)
+    with pytest.raises(ValueError):
+        K.idct_dequant_batch(coefs, qtabs, K.idct_job_table([(0, 2 * bx, 64, 0, bx, 0, 1)]),
+                             torch.zeros(2 * bx * 64, dtype=torch.uint8))
+    planes = K.idct_dequant_batch(coefs, qtabs, K.idct_job_table([(0, 2 * bx, 64, 0, bx, 0, 0)]),
+                                  torch.zeros(2 * bx * 64, dtype=torch.uint8))
+    np.testing.assert_array_equal(planes.numpy().reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("which", ["idct", "ycc"])
+def test_a_staged_table_goes_only_with_the_table_it_was_made_from(which):
+    """What the kernel reads is made from the table the wrapper checks, by
+    ``StagedTable``, which also places it in the upload: a wrapper given a
+    staged table with another host table (an equal copy even) raises; so
+    does staging off a 16 B boundary, binding before staging or to bytes
+    that end too early, and launching before the upload."""
+    band = mixed_band(7)
+    jobs, tiles = batch_tables(band)
+    coefs, qtabs = torch.from_numpy(band.coefs), torch.from_numpy(band.qtabs)
+    planes = torch.zeros(band.plane_bytes, dtype=torch.uint8)
+    out = torch.zeros((band.h, band.width, 4), dtype=torch.uint8)
+    if which == "idct":
+        source, staged = jobs, K.StagedTable.for_idct(jobs)
+        assert torch.equal(staged.rows, K.idct_cta_table(jobs))
+
+        def call(table, st):
+            return K.idct_dequant_batch(coefs, qtabs, table, planes, staged=st)
+    else:
+        source, staged = tiles, K.StagedTable.for_ycc(tiles)
+        assert staged.rows is tiles
+
+        def call(table, st):
+            return K.ycc_rgba_batch(planes, table, out, staged=st)
+    assert staged.source is source
+    with pytest.raises(ValueError):
+        call(source.clone(), staged)
+    buf = np.zeros(32 + staged.nbytes, np.uint8)
+    with pytest.raises(ValueError):
+        staged.bind(torch.from_numpy(buf))  # not staged yet
+    with pytest.raises(ValueError):
+        staged.stage(buf, 8)
+    with pytest.raises(ValueError):
+        K._staged_rows(staged, torch.device("cpu"))  # not uploaded yet
+    staged.stage(buf, 32)
+    with pytest.raises(ValueError):
+        staged.bind(torch.from_numpy(buf[:-4]))
+    with pytest.raises(TypeError):
+        staged.bind(torch.from_numpy(buf.view(np.int32)))
+    staged.bind(torch.from_numpy(buf))
+    assert torch.equal(K._staged_rows(staged, torch.device("cpu")), staged.rows)
+    assert staged.device.data_ptr() == torch.from_numpy(buf).data_ptr() + 32
+    call(source, staged)  # the CPU path takes it with its own table
+
+
+def test_the_pass_matrix_gives_the_32_bit_bound():
+    """IDCT_PASS_L1 is the largest sum of |a_i| over the pass's outputs, and
+    IDCT_INT32_MAX_DEQ keeps IDCT_PASS_L1 * M + 2^10 below 2^31."""
+    shim = load_host_shim()
+    cols = []
+    for i in range(8):
+        v = np.zeros(8, np.int64)
+        v[i] = 2
+        shim.idct_pass_host(_ptr(v), 1)  # (2 a + 1) >> 1 = a
+        cols.append(v.copy())
+    l1 = np.abs(np.stack(cols, axis=1)).sum(axis=1)
+    assert int(l1.max()) == 61214
+    assert 61214 * K.IDCT_INT32_MAX_DEQ + 1024 < 1 << 31
+
+
+def test_both_range_limits_over_the_cycle():
+    """The 32-bit range limit (10-bit two's complement plus 128, clamped)
+    equals POST[x & 1023] for every residue, at any height."""
+    x = np.concatenate([np.arange(-4096, 4096), np.arange(-2048, 2048) * (1 << 18) + 517,
+                        [-(1 << 31), (1 << 31) - 1]]).astype(np.int64)
+    u = (x & 0xFFFFFFFF).astype(np.uint32)
+    narrow, wide = np.zeros(len(u), np.uint8), np.zeros(len(u), np.uint8)
+    load_host_shim().idct_range_limit_host(_ptr(u), _ptr(narrow), _ptr(wide), len(u))
+    want = D.range_limit(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(narrow, want)
+    np.testing.assert_array_equal(wide, want)
+
+
+def test_batched_wrappers_check_their_tables():
+    band = mixed_band(5)
+    jobs, tiles = batch_tables(band)
+    coefs, qtabs = torch.from_numpy(band.coefs), torch.from_numpy(band.qtabs)
+    planes = torch.zeros(band.plane_bytes, dtype=torch.uint8)
+    out = torch.zeros((band.h, band.width, 4), dtype=torch.uint8)
+
+    def bad(col, value, row=1):
+        t = jobs.clone()
+        t[row, col] = value
+        return t
+
+    for table in (bad(0, 4), bad(0, len(coefs)), bad(2, 12), bad(2, 72), bad(3, len(qtabs)),
+                  bad(4, 5), bad(5, 8), bad(5, band.plane_bytes), bad(1, 0), jobs[:, :7],
+                  jobs.to(torch.int64)):
+        with pytest.raises((ValueError, TypeError)):
+            K.idct_dequant_batch(coefs, qtabs, table, planes)
+    with pytest.raises(TypeError):
+        K.idct_dequant_batch(coefs.to(torch.int32), qtabs, jobs, planes)
+    with pytest.raises(ValueError):
+        K.idct_dequant_batch(coefs, qtabs[:, :32], jobs, planes)
+
+    def bad_tile(col, value, row=0):
+        t = tiles.clone()
+        t[row, col] = value
+        return t
+
+    comp = K.YCC_TILE_COMP
+    for table in (bad_tile(0, 2), bad_tile(1, -1), bad_tile(2, band.width + 1), bad_tile(3, 2),
+                  bad_tile(3, 1, row=1), bad_tile(comp, band.plane_bytes),
+                  bad_tile(comp + 1, 1), bad_tile(comp + 6, 2), bad_tile(comp + 8 + 7, 1)):
+        with pytest.raises(ValueError):
+            K.ycc_rgba_batch(planes, table, out)
+    with pytest.raises(ValueError):
+        K.ycc_rgba_batch(planes, tiles, out[:, :, :3].contiguous())
+    counts = K.idct_dequant.launches, K.ycc_rgba.launches
+    K.idct_dequant_batch(coefs, qtabs, jobs, planes)
+    K.ycc_rgba_batch(planes, tiles, out)
+    assert counts == (K.idct_dequant.launches, K.ycc_rgba.launches)  # the CPU never launches
+
+
+def test_variants_and_tables():
+    assert K.YCC_VARIANTS[K.ycc_variant(8, 64, 4096)] == "vec16"
+    for x0, width, address in ((9, 64, 4096), (8, 66, 4096), (8, 64, 4100)):
+        assert K.YCC_VARIANTS[K.ycc_variant(x0, width, address)] == "words"
+    jobs = K.idct_job_table([(0, 18, 8, 0, 3, 0, 1), (144, 40, 16, 1, 20, 1152, 0)])
+    assert jobs[:, 6].tolist() == [K.IDCT_JOB_INT32, 0]
+    # 18 blocks in rows of 3: CTAs of 16 and 2 blocks, the second at block row
+    # 5, place 1; 40 blocks in rows of 20: 16 + 16 + 8, the third at row 1,
+    # place 12.
+    assert K.IDCT_CTA_BLOCKS == 16
+    assert K.idct_cta_table(jobs).tolist() == [
+        [0, 16, 8, 0, 3, 0, 0, 1], [128, 2, 8, 0, 3, 5 * 64 * 3, 1, 1],
+        [144, 16, 16, 1, 20, 1152, 0, 0], [144 + 256, 16, 16, 1, 20, 1152, 16, 0],
+        [144 + 512, 8, 16, 1, 20, 1152 + 64 * 20, 12, 0]]
+    comps = [(0, 8, 1, 1, 0, 0, 8, 5)]
+    tiles = K.ycc_tile_table([(0, 5, comps), (8, 300, comps)], 400, 0)
+    assert tiles[:, :4].tolist() == [[1, 0, 5, 1], [1, 8, 300, 1]]
+    assert tiles[0, K.YCC_TILE_COMP : K.YCC_TILE_COMP + 8].tolist() == list(comps[0])
 
 
 # --------------------------------------------------------------------------- #
