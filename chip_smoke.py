@@ -50,8 +50,13 @@ path. Phases, each printing its lines before the last:
    whole words and on sums past 2^31. Outputs must be equal;
 4. main paths, through ``image_stitch_tpu_torch.concat_to_buffer(...,
    device="cuda")``, each output byte-identical to the same call with
-   ``device="cpu"`` (the plain torch versions; the CPU tests hold that path
-   to the JAX package byte for byte), whose seconds are printed. Every
+   ``device="cpu"`` (the plain torch versions) or, for the 67 MP grid to
+   JPEG and to PNG and the positioned runs, with ``backend="numpy"`` (the
+   host tier, much faster than the plain versions on the CPU; the CPU tests
+   hold both to the JAX package byte for byte), whose seconds are printed.
+   A host-tier run must launch no kernel, leave the card's allocated
+   memory and its peak where they were, and count every band as the host
+   tier's; a card run must code no band on the host tier. Every
    kernel's launch count is set to 0 just before each card run and read
    just after it:
    - JPEG: an 8 x 8 grid of 1024 x 1024 photo-like RGBA PNG tiles (a 67 MP
@@ -77,9 +82,13 @@ path. Phases, each printing its lines before the last:
      times each, and every blended band must reach the encoder as a tensor
      on the card); then compositing against its plain version on the
      positioned runs' most crowded real band;
-   - the rest of the API: ``JpegEncoder.encode_to_buffer`` of one tile and
-     the command line (``image_stitch_tpu_torch.__main__.main``) over four
-     tile files, on the card against ``device="cpu"``, byte for byte;
+   - the rest of the API: ``JpegEncoder.encode_to_buffer`` of one tile (also
+     against ``backend="numpy"``) and the command line
+     (``image_stitch_tpu_torch.__main__.main``) over four tile files, on the
+     card against ``device="cpu"``, byte for byte;
+   - ``device_trace``: one band of the grid to JPEG under it; its Chrome
+     trace must list the kernels of fdct_quant and pack_merge, and its
+     output equal the untraced run's;
 5. timing: per-band time of each JPEG stage, of pack_merge against its
    plain version (the plain pack, then the plain merge) and against
    ``index_add_`` of the same words (the one PyTorch call that computes the
@@ -91,9 +100,9 @@ path. Phases, each printing its lines before the last:
    warm-up), and for the hand kernels and ``index_add_`` also the device
    time per call from torch.profiler, which leaves out host launch time
    (the ``ms`` and ``library_ms`` of the kernel line); end-to-end
-   MP/s of the torch path for grid to JPEG (two runs), grid to PNG and
-   positioned to PNG (one run each: the host's deflate sets them), and of
-   host decode + assembly and host deflate alone; one profiled
+   MP/s of grid to JPEG, grid to PNG and positioned to PNG, two runs each
+   on the card and two on the host tier (``backend="numpy"``), alternated,
+   and of host decode + assembly and host deflate alone; one profiled
    run each of grid to JPEG and grid to PNG. For the JPEG kernels:
    the batched idct_dequant and ycc_rgba on a real band of the JPEG-tile
    grid (8 tiles, one launch each), that band's whole decode between CUDA
@@ -116,6 +125,7 @@ start with ``time:`` give the wall seconds each phase took in this run.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -843,6 +853,14 @@ def band_to_blocks(sampling: str):
     return band_to_blocks_islow_420 if sampling == "420" else band_to_blocks_islow
 
 
+def same_bytes(out: bytes, ref: bytes, what: str, ref_name: str) -> None:
+    if out != ref:
+        n = min(len(out), len(ref))
+        first = next((i for i in range(n) if out[i] != ref[i]), n)
+        fail(f"{what}: card output ({len(out)} B) != {ref_name} output ({len(ref)} B), "
+             f"first difference at byte {first}")
+
+
 def same_as_cpu(out: bytes, opts: dict, what: str) -> None:
     """``out`` must equal the port's ``device="cpu"`` output for ``opts``."""
     import image_stitch_tpu_torch
@@ -850,12 +868,49 @@ def same_as_cpu(out: bytes, opts: dict, what: str) -> None:
     t0 = time.perf_counter()
     ref = image_stitch_tpu_torch.concat_to_buffer(opts, device="cpu")
     secs = time.perf_counter() - t0
-    if out != ref:
-        n = min(len(out), len(ref))
-        first = next((i for i in range(n) if out[i] != ref[i]), n)
-        fail(f"{what}: card output ({len(out)} B) != CPU output ({len(ref)} B), "
-             f"first difference at byte {first}")
+    same_bytes(out, ref, what, "CPU")
     say(f"main path {what}: byte-identical to the port's CPU path ({secs:.2f} s on the CPU)")
+
+
+def host_tier_run(opts: dict, dev: torch.device, what: str) -> tuple[bytes, float]:
+    """One run of ``opts`` on the port's host tier (``backend="numpy"``),
+    with ``device`` given as the card: every kernel count must stay 0, the
+    card's allocated memory must not move (its peak included: no tensor is
+    made there), and every band must be counted as the host tier's.
+    Returns (output, seconds)."""
+    import image_stitch_tpu_torch
+    from image_stitch_tpu_torch.ops import kernels as K
+
+    for k in COUNTED:
+        getattr(K, k).launches = 0
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    t0 = time.perf_counter()
+    out = image_stitch_tpu_torch.concat_to_buffer({**opts, "backend": "numpy"}, device=dev,
+                                                  counters=counters)
+    secs = time.perf_counter() - t0
+    launches = {k: getattr(K, k).launches for k in COUNTED}
+    after, peak = torch.cuda.memory_allocated(dev), torch.cuda.max_memory_allocated(dev)
+    others = {k: v for k, v in vars(counters).items() if k != "host_tier_bands" and v}
+    if any(launches.values()) or others or counters.host_tier_bands <= 0:
+        fail(f"{what} on the host tier: launches {launches}, counters {counters}")
+    if not before == after == peak:
+        fail(f"{what} on the host tier: card memory allocated {before} B before, {after} B "
+             f"after, peak {peak} B")
+    return out, secs
+
+
+def same_as_host(out: bytes, opts: dict, dev: torch.device, what: str) -> None:
+    """``out`` must equal the port's host-tier output for ``opts``: the
+    byte reference of the 67 MP cases (the CPU tests hold the host tier to
+    the JAX package's ``backend="numpy"`` byte for byte)."""
+    ref, secs = host_tier_run(opts, dev, what)
+    same_bytes(out, ref, what, "host tier")
+    say(f"main path {what}: byte-identical to the port's host tier ({secs:.2f} s on the host "
+        f"tier; no launch, card memory unmoved)")
 
 
 COUNTED = ("pack_merge", "filter_select", "composite_segments", "idct_dequant", "ycc_rgba",
@@ -912,7 +967,8 @@ def reset_trace() -> None:
 
 
 def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
-             must_launch: tuple[str, ...], reference: str = "cpu", expect: dict | None = None):
+             must_launch: tuple[str, ...], reference: str | tuple = "cpu",
+             expect: dict | None = None):
     """One main-path run through ``image_stitch_tpu_torch.concat_to_buffer``
     with every kernel's launch count set to 0 just before it and read just
     after; each kernel in ``must_launch`` must have launched in this run,
@@ -923,10 +979,11 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
     band, each with one upload. ``expect`` holds counts that must match:
     "decode_band" (the counters' tile-and-band decodes), "device_bands"
     (bands decoded whole on the card), "host_tiles", and "encoder_bands" of
-    each kind. The output must equal
-    the CPU path's (``reference`` "cpu") or the same call's with
-    STITCH_TPU_DEVICE_DECODE=0 on the card ("host_decode"). Returns
-    (output, launches, counters)."""
+    each kind. No band may be coded on the host tier. The output must
+    equal the CPU path's (``reference`` "cpu"), the host tier's ("host"),
+    or the same call's with STITCH_TPU_DEVICE_DECODE=0 on the card
+    ("host_decode"); a tuple names several. Returns (output, launches,
+    counters)."""
     import os
 
     import image_stitch_tpu_torch
@@ -952,6 +1009,8 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
         f"encoder bands {kinds}")
     if counters.host_fallback_bands:
         fail(f"{name}: {counters.host_fallback_bands} bands were coded on the host")
+    if counters.host_tier_bands:
+        fail(f"{name}: {counters.host_tier_bands} bands were coded on the host tier")
     if opts["outputFormat"] == "jpeg":
         if out[:2] != b"\xff\xd8" or out[-2:] != b"\xff\xd9":
             fail(f"{name}: not a JPEG stream")
@@ -982,9 +1041,12 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
     for key, want in (expect or {}).items():
         if got[key] != want:
             fail(f"{name}: {key} = {got[key]}, expected {want}")
-    if reference == "cpu":
+    references = (reference,) if isinstance(reference, str) else reference
+    if "cpu" in references:
         same_as_cpu(out, opts, name)
-    else:
+    if "host" in references:
+        same_as_host(out, opts, dev, name)
+    if "host_decode" in references:
         os.environ["STITCH_TPU_DEVICE_DECODE"] = "0"
         reset_trace()
         try:
@@ -1065,8 +1127,13 @@ def api_checks(tiles: list[np.ndarray], tiles_png: list[bytes], dev: torch.devic
         fail("JpegEncoder.encode_to_buffer: card output != CPU output")
     if min(launches.values()) <= 0:
         fail(f"JpegEncoder.encode_to_buffer: launches {launches}")
+    for k in COUNTED:
+        getattr(K, k).launches = 0
+    host = JpegEncoder(TILE, TILE, QUALITY, "numpy", "420", device=dev).encode_to_buffer(rgba)
+    if host != got or any(getattr(K, k).launches for k in COUNTED):
+        fail("JpegEncoder.encode_to_buffer: the host tier's output != the card's, or it launched")
     say(f"JpegEncoder.encode_to_buffer {TILE}x{TILE} 4:2:0 q{QUALITY} on the card: {len(got)} B, "
-        f"byte-identical to device='cpu'; launches {launches}")
+        f"byte-identical to device='cpu' and to backend='numpy'; launches {launches}")
     with tempfile.TemporaryDirectory() as tmp:
         paths = []
         for i, data in enumerate(tiles_png[:4]):
@@ -1091,6 +1158,71 @@ def api_checks(tiles: list[np.ndarray], tiles_png: list[bytes], dev: torch.devic
              f"--device cpu ({len(outs['cpu'])} B)")
     say(f"command line, 4 tiles --columns 2 to JPEG --device cuda: {len(outs['cuda'])} B, "
         f"byte-identical to --device cpu; launches {launches}")
+
+
+def trace_check(tiles: list[np.ndarray], dev: torch.device) -> None:
+    """One band of ``grid_jpeg`` (the top BAND_ROWS rows of the first row of
+    tiles: a 256 x 8192 canvas, restart rows 1) under ``device_trace``: the
+    Chrome trace it writes must list the kernels of fdct_quant and
+    pack_merge among its device kernels, and the output must equal the
+    untraced run's. Traced twice, the first run paying the profiler's
+    start-up; prints each run's seconds: the profiler's cost."""
+    import glob
+    import re
+    import tempfile
+
+    import image_stitch_tpu_torch
+    from image_stitch_tpu_torch.utils.observability import device_trace
+
+    opts = {"inputs": [png_bytes(t[:BAND_ROWS]) for t in tiles[:GRID]],
+            "layout": {"columns": GRID}, "outputFormat": "jpeg", "jpegQuality": QUALITY,
+            "bandHeight": BAND_ROWS, "jpegRestartIntervalRows": 1}
+    t0 = time.perf_counter()
+    plain = image_stitch_tpu_torch.concat_to_buffer(opts, device=dev)
+    plain_secs = time.perf_counter() - t0
+    for run in ("first", "second"):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            with device_trace(tmp):
+                out = image_stitch_tpu_torch.concat_to_buffer(opts, device=dev)
+            secs = time.perf_counter() - t0
+            files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+            if len(files) != 1:
+                fail(f"device_trace wrote {files}, expected one *.pt.trace.json")
+            size = os.path.getsize(files[0])
+            with open(files[0]) as f:
+                events = json.load(f)["traceEvents"]
+        # "void (anonymous namespace)::fdct_quant_444_kernel<1>(...)" -> its name
+        kernels = sorted({re.sub(r"^(void )?(\(anonymous namespace\)::)?", "", e["name"])
+                          .split("(")[0] for e in events if e.get("cat") == "kernel"})
+        missing = [k for k in ("fdct_quant", "pack_merge") if not any(k in n for n in kernels)]
+        if missing or out != plain:
+            fail(f"device_trace: kernels {missing} missing from the trace's {kernels}, or the "
+                 f"traced output ({len(out)} B) != the untraced ({len(plain)} B)")
+        say(f"device_trace of one grid_jpeg band (256x8192, ri=1), {run} traced run: "
+            f"{len(events)} events, {size} B; device kernels {kernels}; traced {secs:.3f} s, "
+            f"untraced {plain_secs:.3f} s, same bytes")
+
+
+def tier_rates(opts: dict, megapixels: float, dev: torch.device,
+               runs: int = 2) -> tuple[list[float], list[float]]:
+    """End-to-end MP/s of ``runs`` card runs and ``runs`` host-tier runs
+    (``backend="numpy"``) of ``opts``, alternated: card, host, card, host.
+    No card run may code a band on the host tier."""
+    import image_stitch_tpu_torch
+
+    card, host = [], []
+    for _ in range(runs):
+        counters = image_stitch_tpu_torch.EncodeCounters()
+        t0 = time.perf_counter()
+        image_stitch_tpu_torch.concat_to_buffer(opts, device=dev, counters=counters)
+        card.append(megapixels / (time.perf_counter() - t0))
+        if counters.host_tier_bands:
+            fail(f"a card run coded {counters.host_tier_bands} bands on the host tier")
+        t0 = time.perf_counter()
+        image_stitch_tpu_torch.concat_to_buffer({**opts, "backend": "numpy"}, device=dev)
+        host.append(megapixels / (time.perf_counter() - t0))
+    return card, host
 
 
 def png_kernel_timing(dev: torch.device, real_band: tuple) -> tuple[dict, dict]:
@@ -1512,7 +1644,7 @@ def main() -> None:
     encode = ("fdct_quant", "symbol_streams", "group_layout", "pack_merge")
     decode = ("idct_dequant", "ycc_rgba")
     launches, comp_err, real_band = main_paths([
-        (f"grid -> JPEG ri=1 444 q{QUALITY}", grid_jpeg, mp_grid, encode, "cpu",
+        (f"grid -> JPEG ri=1 444 q{QUALITY}", grid_jpeg, mp_grid, encode, "host",
          {"decode_band": 0, "device_bands": 0}),
         (f"JPEG tiles grid -> JPEG ri=1 444 q{QUALITY}", grid_tiles, mp_grid, decode + encode,
          "host_decode", {"decode_band": GRID * n_bands, "device_bands": n_bands,
@@ -1537,12 +1669,13 @@ def main() -> None:
          mp_small, encode),
         (f"2x2 grid -> JPEG ri=1 420 q{QUALITY}", {**small_jpeg, "jpegSampling": "420"},
          mp_small, encode),
-        ("grid -> PNG 8-bit level 6", grid_png, mp_grid, ("filter_select",)),
+        ("grid -> PNG 8-bit level 6", grid_png, mp_grid, ("filter_select",), "host"),
         ("2x2 grid -> PNG 16-bit level 6", small_png16, mp_small, ("filter_select",)),
-        ("positioned -> PNG", positioned, mp_side, ("composite_segments", "filter_select")),
+        ("positioned -> PNG", positioned, mp_side, ("composite_segments", "filter_select"),
+         ("cpu", "host")),
         (f"positioned -> JPEG q{QUALITY}",
          {**positioned, "outputFormat": "jpeg", "jpegQuality": QUALITY}, mp_side,
-         ("composite_segments",) + encode, "cpu",
+         ("composite_segments",) + encode, ("cpu", "host"),
          {"encoder_bands_card": SIDE // BAND_ROWS, "encoder_bands_host": 0}),
     ], dev)
     errs["composite_segments"] = max(errs["composite_segments"], comp_err)
@@ -1550,6 +1683,8 @@ def main() -> None:
     lap("phase 4, main paths on the card and their references on the CPU")
     api_checks(tiles, tiles_png, dev)
     lap("phase 4, JpegEncoder and the command line")
+    trace_check(tiles, dev)
+    lap("phase 4, device_trace")
 
     # 5. Timing.
     t, band_errs, moved = band_timing(tiles, dev)
@@ -1590,15 +1725,18 @@ def main() -> None:
         f"the same tiles as {GRID} "
         f"decode_band calls ({GRID} uploads, {2 * GRID} launches): "
         f"{fmt(t['decode_band_x8'])} [{card}]")
-    # Two runs of the JPEG paths; one of the PNG paths, which the host's
-    # deflate holds at some 8 s a run.
-    for name, opts, mp, runs in (
-            (f"grid_jpeg 67.1 MP ri=1 q{QUALITY}", grid_jpeg, mp_grid, 2),
-            (f"jpeg_tiles 67.1 MP ri=1 q{QUALITY}, device decode", grid_tiles, mp_grid, 2),
-            ("grid_png 67.1 MP level 6", grid_png, mp_grid, 1),
-            (f"positioned_png {mp_side:.1f} MP", positioned, mp_side, 1)):
-        r = e2e_rates(opts, mp, dev, runs)
-        say(f"e2e {name} torch: {', '.join(f'{x:.2f}' for x in r)} MP/s [{card}]")
+    # Two runs of each path on the card and, where the host tier has the
+    # same path, two on the host tier, alternated with them.
+    for name, opts, mp in (
+            (f"grid_jpeg 67.1 MP ri=1 q{QUALITY}", grid_jpeg, mp_grid),
+            ("grid_png 67.1 MP level 6", grid_png, mp_grid),
+            (f"positioned_png {mp_side:.1f} MP", positioned, mp_side)):
+        r, h = tier_rates(opts, mp, dev)
+        say(f"e2e {name} torch: {', '.join(f'{x:.2f}' for x in r)} MP/s; host tier "
+            f"(backend='numpy'): {', '.join(f'{x:.2f}' for x in h)} MP/s [{card}]")
+    r = e2e_rates(grid_tiles, mp_grid, dev)
+    say(f"e2e jpeg_tiles 67.1 MP ri=1 q{QUALITY}, device decode torch: "
+        f"{', '.join(f'{x:.2f}' for x in r)} MP/s [{card}]")
     os.environ["STITCH_TPU_DEVICE_DECODE"] = "0"
     try:
         r = e2e_rates(grid_tiles, mp_grid, dev)

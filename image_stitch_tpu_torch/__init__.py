@@ -18,8 +18,9 @@ The root exports every name the JAX package's root exports, from the port's
 own copies of the modules; two classes carry the port's names:
 ``TorchStreamingConcatenator`` (there ``CoreStreamingConcatenator``) and
 ``TorchStreamingJpegEncoder`` (there ``StreamingJpegEncoder``). Each entry
-point that reaches a device takes the keyword ``device``. The command line
-is ``python -m image_stitch_tpu_torch``.
+point that reaches a device takes the keyword ``device``; the option
+``backend="numpy"`` runs the JAX package's host tier instead, with its
+bytes. The command line is ``python -m image_stitch_tpu_torch``.
 """
 
 from __future__ import annotations

@@ -7,9 +7,11 @@ Each takes the same options (a ``ConcatOptions`` or a dict, snake_case or
 camelCase keys) plus a keyword ``device``: "cuda" (the default) runs the
 band work (JPEG or PNG encode, positioned compositing) on the GPU and
 raises when CUDA is absent; "cpu" runs the plain torch versions of the
-kernels. ``counters``, when given, receives what the device did (JPEG
-bands, re-packs and host-coded bands; PNG bands; composited and replayed
-positioned bands).
+kernels. The option ``backend="numpy"`` (or "oracle") runs the host tier
+instead and leaves ``device`` unread. ``counters``, when given, receives
+what the device did (JPEG bands, re-packs and host-coded bands; PNG bands;
+composited and replayed positioned bands) and the bands the host tier
+encoded.
 """
 
 from __future__ import annotations

@@ -8,8 +8,14 @@ to ``TorchBackend``'s filter select; positioned 8-bit bands with alpha
 blending composite on the device (``DeviceCompositor``) and go to either
 encoder as tensors. For JPEG output, grid bands tiled by JPEG inputs are
 decoded on the device (``DeviceJpegDecoder``: host Huffman once, the pixel
-math per band there) and handed to the encoder without leaving it. The JAX
-package's backend resolution and mesh are not part of the copy.
+math per band there) and handed to the encoder without leaving it.
+
+``backend="numpy"`` (or "oracle") is the host tier, as in the JAX package:
+no device is resolved and no tensor made; bands composite on the host
+(``ops.pixel.composite_band``), JPEG tiles decode on the host, and the
+bands go to the host ``StreamingJpegEncoder`` or ``ops.backend.
+NumpyBackend``. "auto" means "torch" until the auto policy is ported; the
+JAX package's mesh is not part of the copy.
 
 Counterpart of the reference's ``CoreStreamingConcatenator``
 (src/image-concat-core.ts:279-1473), redesigned TPU-first: where the
@@ -47,7 +53,7 @@ from .codecs.factory import (
     validate_positioned_inputs,
 )
 from .codecs.png.writer import create_idat, create_iend, create_ihdr, serialize_chunk
-from .codecs.jpeg.encoder import TorchStreamingJpegEncoder
+from .codecs.jpeg.encoder import StreamingJpegEncoder, TorchStreamingJpegEncoder
 from .codecs.registry import get_default_decoder_plugins
 from .errors import StitchError, format_pixels
 from .io.deflate import StreamingDeflator
@@ -57,9 +63,10 @@ from .layout.positioned import (
     calculate_canvas_size,
     clip_images_to_canvas,
 )
+from .ops.backend import get_backend, resolve_backend_name
 from .ops.composite_device import DeviceCompositor
 from .ops.counters import EncodeCounters
-from .ops.device import TorchBackend, resolve_device
+from .ops.device import resolve_device
 from .ops.pixel import (
     background_pixel,
     composite_band,
@@ -346,22 +353,20 @@ def _bands_from_rows(rows: Iterator[np.ndarray], band_height: int):
 
 
 class TorchStreamingConcatenator:
-    """Band-streaming concatenator with the band work on a torch device
-    (reference: CoreStreamingConcatenator, image-concat-core.ts:279).
+    """Band-streaming concatenator with the band work on a torch device, or
+    on the host tier under ``backend="numpy"`` (reference:
+    CoreStreamingConcatenator, image-concat-core.ts:279).
 
-    ``mesh`` and any ``backend`` other than "auto" or "torch" raise, since
-    they name another package's path."""
+    ``mesh`` and a ``backend`` other than "auto", "torch", "numpy" or
+    "oracle" raise, since they name another package's path. The host tier
+    leaves ``device`` unread (``self.device`` is None)."""
 
     def __init__(self, options: ConcatOptions | Mapping[str, Any], device="cuda",
                  counters: EncodeCounters | None = None):
         self.options = ConcatOptions.from_any(options)
         if self.options.mesh is not None:
             raise StitchError("mesh is not supported by image_stitch_tpu_torch")
-        if self.options.backend not in ("auto", "torch"):
-            raise StitchError(
-                f"backend={self.options.backend!r} is not a path of image_stitch_tpu_torch; "
-                "use 'torch' (or leave it unset)"
-            )
+        self.backend = resolve_backend_name(self.options.backend)
         self.options.validate()
         from .utils.observability import PipelineStats
 
@@ -370,7 +375,7 @@ class TorchStreamingConcatenator:
         # absent in the reference.
         self.stats = PipelineStats()
         self._pool = None  # host_threads decode workers (lazy)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if self.backend == "torch" else None
         self.counters = counters if counters is not None else EncodeCounters()
 
     def _host_pool(self):
@@ -648,11 +653,13 @@ class TorchStreamingConcatenator:
         # is decoded there, all its tiles at once (one upload, two launches),
         # each written at its x offset into one band tensor, and decoded
         # pixels never cross the link. Output bytes are
-        # identical by the tier's exactness, so the gate only routes.
+        # identical by the tier's exactness, so the gate only routes. The
+        # host tier has no device: its tiles decode on the host.
         import os as _os
 
         dev_gate = (
-            opts.output_format == "jpeg"
+            self.device is not None
+            and opts.output_format == "jpeg"
             and dtype == np.uint8
             and _os.environ.get("STITCH_TPU_DEVICE_DECODE", "1") != "0"
         )
@@ -880,9 +887,10 @@ class TorchStreamingConcatenator:
 
         # Device compositor (one kernel launch per band) for 8-bit alpha
         # blending; exact-tie bands replay through the host float64 oracle
-        # (ops/composite_device.py).
+        # (ops/composite_device.py). The host tier blends every band with
+        # that oracle.
         compositor = None
-        if blend and dtype == np.uint8:
+        if blend and dtype == np.uint8 and self.device is not None:
             compositor = DeviceCompositor(self.device, self.counters)
 
         plans = build_band_plan(placed, out_header.height, band_h)
@@ -965,10 +973,11 @@ class TorchStreamingConcatenator:
     def _encode_png(
         self, bands: Iterator[np.ndarray | torch.Tensor], out_header: PngHeader
     ) -> Iterator[bytes]:
-        """Filter-select each band on the device, feed the streaming
-        deflator, emit IDAT chunks as they materialize (reference:
-        streamCompressedData, image-concat-core.ts:309-383)."""
-        backend = TorchBackend(self.device, self.counters)
+        """Filter-select each band on the device (or on the host tier),
+        feed the streaming deflator, emit IDAT chunks as they materialize
+        (reference: streamCompressedData, image-concat-core.ts:309-383)."""
+        host_tier = self.backend == "numpy"
+        backend = get_backend(self.backend, self.device, self.counters)
         chunks: list[bytes] = []
         deflator = StreamingDeflator(
             level=self.options.png_compression_level,
@@ -994,13 +1003,23 @@ class TorchStreamingConcatenator:
         # One-band lookahead: submit filter-select for band N (device compute
         # + async readback), then deflate band N-1 on the host. The filter
         # carry (previous raw row) is input data that stays on the device,
-        # so submission never waits on device results.
+        # so submission never waits on device results. The host tier's
+        # carry is the host row its synchronous filter returns.
         prev_row = None
         pending = None
         for canvas in bands:
             self.stats.record_band(canvas.shape[0], canvas.shape[1])
+            if host_tier and isinstance(canvas, torch.Tensor):
+                raise StitchError(
+                    f"a tensor band on {canvas.device} reached the host PNG "
+                    "encoder (backend='numpy'); the host tier takes host arrays only"
+                )
             handle = backend.png_filter_band_async(canvas, prev_row)
-            prev_row = handle.carry
+            if host_tier:
+                prev_row = handle[2]
+                self.counters.host_tier_bands += 1
+            else:
+                prev_row = handle.carry
             if pending is not None:
                 yield from emit(pending)
             pending = handle
@@ -1016,16 +1035,20 @@ class TorchStreamingConcatenator:
         """JPEG encode over 8-row MCU strips (reference: streamJpegData,
         image-concat-core.ts:837-925; edge-pixel repetition for the partial
         final strip happens inside the encoder). A band decoded or blended
-        on the device goes to the encoder as a tensor, with no read-back."""
-        encoder = TorchStreamingJpegEncoder(
+        on the device goes to the encoder as a tensor, with no read-back.
+        The host tier's encoder takes host arrays only."""
+        kwargs = dict(
             width=out_header.width,
             height=out_header.height,
             quality=self.options.jpeg_quality,
             sampling=self.options.jpeg_sampling,
             restart_interval_rows=self.options.jpeg_restart_interval_rows,
-            device=self.device,
             counters=self.counters,
         )
+        if self.backend == "numpy":
+            encoder = StreamingJpegEncoder(**kwargs)
+        else:
+            encoder = TorchStreamingJpegEncoder(**kwargs, device=self.device)
         yield from encoder.header()
         for canvas in bands:
             if canvas.dtype not in (np.uint8, torch.uint8) or canvas.ndim != 3:

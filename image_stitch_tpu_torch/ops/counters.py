@@ -1,4 +1,5 @@
-"""What a run did on the device, counted by the modules that do it."""
+"""What a run did, on the device or the host tier, counted by the modules
+that do it."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ from dataclasses import dataclass
 
 @dataclass
 class EncodeCounters:
-    """What a run did on the device.
+    """What a run did on the device, and on the host tier.
 
     JPEG (``TorchJpegEncoder``): bands submitted, on-device re-packs after
     an overflow, and bands coded on the host because they overflowed every
@@ -17,7 +18,10 @@ class EncodeCounters:
     on an exact rational tie. JPEG tiles decoded by the device tier
     (``core._grid_canvas_bands``): decodes counted per tile and band, and
     the bands decoded whole into a band tensor on the device (one upload and
-    two launches each, whatever the number of tiles)."""
+    two launches each, whatever the number of tiles). Bands encoded by the
+    host tier (``backend="numpy"``: the host ``StreamingJpegEncoder``, and
+    ``core._encode_png`` on ``ops.backend.NumpyBackend``), which launches no
+    kernel."""
 
     bands: int = 0
     repacks: int = 0
@@ -27,3 +31,4 @@ class EncodeCounters:
     composite_fallback_bands: int = 0
     decode_tile_bands: int = 0
     decode_bands_on_device: int = 0
+    host_tier_bands: int = 0

@@ -2,8 +2,11 @@
 
 The reference has no tracing/profiling subsystem (SURVEY §5: ABSENT; nearest
 analog is the test-only memory sampler, tests/utils/memory-monitor.ts:77-126).
-The TPU build makes it first-class:
+The port makes it first-class:
 
+- :func:`device_trace` wraps a region with ``torch.profiler`` so the
+  port's functions (Python stacks) and, on a card, its kernels and copies
+  show up in a Chrome trace (TensorBoard, Perfetto, chrome://tracing).
 - :class:`PipelineStats` counts bands, pixels, emitted bytes, and stage wall
   time, and reproduces the reference's streaming-efficiency contract
   (peak RSS <= factor x output bytes, memory-monitor.ts:213-234) as a
@@ -18,6 +21,30 @@ import contextlib
 import os
 import time
 from dataclasses import dataclass, field
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str | None = None):
+    """Profile a region with torch.profiler; no-op when log_dir is None and
+    STITCH_TPU_TRACE_DIR is unset.
+
+    Records CPU activity with Python stacks, and CUDA activity (kernels,
+    copies, memsets) when a card is present; on exit writes one Chrome
+    trace, a ``*.pt.trace.json`` file, into ``log_dir``
+    (``tensorboard_trace_handler``). A profiler that cannot start raises."""
+    log_dir = log_dir or os.environ.get("STITCH_TPU_TRACE_DIR")
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, with_stack=True,
+                 on_trace_ready=tensorboard_trace_handler(os.fspath(log_dir))):
+        yield
 
 
 def _rss_bytes() -> int:

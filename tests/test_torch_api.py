@@ -233,7 +233,7 @@ def test_streaming_encoder_takes_strip_bytes():
     assert out == image_stitch_tpu.encode_jpeg(rgba, 24, 16, 85, "numpy")
 
 
-@pytest.mark.parametrize("backend", ["numpy", "jax", "native"])
+@pytest.mark.parametrize("backend", ["tpu", "jax", "native"])
 def test_jpeg_encoder_refuses_other_backends(backend):
     with pytest.raises(port.StitchError, match="not a path of image_stitch_tpu_torch"):
         port.JpegEncoder(16, 16, 85, backend, device="cpu")

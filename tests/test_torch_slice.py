@@ -322,7 +322,7 @@ def test_positioned_stream_bands_are_host_arrays(fmt):
     assert counters.composite_bands_on_device > 0
 
 
-@pytest.mark.parametrize("bad", [{"mesh": 2}, {"backend": "jax"}, {"backend": "numpy"}])
+@pytest.mark.parametrize("bad", [{"mesh": 2}, {"backend": "jax"}, {"backend": "tpu"}])
 def test_other_paths_raise(bad):
     with pytest.raises(StitchError):
         port({**grid_options(64, 48, 0), **bad})
