@@ -89,6 +89,23 @@ path. Phases, each printing its lines before the last:
    - ``device_trace``: one band of the grid to JPEG under it; its Chrome
      trace must list the kernels of fdct_quant and pack_merge, and its
      output equal the untraced run's;
+   - the mesh (``parallel.mesh``): the 67 MP grid to JPEG ri 1 and to PNG
+     over a virtual 2 x 2 mesh on the card (four shards, four streams) and
+     over ``make_mesh(torch.cuda.device_count())``, and the positioned
+     scene to PNG and JPEG over the virtual mesh (a sprite must cross a
+     slab edge), each byte-identical to the single-device card run above
+     (its bytes reused); filter select must launch once per non-empty row
+     slab, the encoder's kernels once per restart-group dispatch on a
+     shard, compositing once per slab of a band;
+     ``make_mesh(device_count() + 1)`` must raise; ``shard_grid_dual_step``
+     over the virtual mesh and ``fused_grid_dual_step`` on the card over
+     one 256-row band of the grid must equal the plain versions on the CPU
+     (the one-card step timed); the card's peak memory over the 67 MP
+     virtual-mesh JPEG run may exceed the same run on the grid's top half by
+     two bands' bytes at most; the 67 MP JPEG run timed in turns on one
+     card and over the virtual mesh (card, mesh, mesh, card), and one
+     profiled mesh run; one ``mesh:`` line with the counts, each run's MP/s
+     beside the single-device run's and the phase's seconds;
 5. timing: per-band time of each JPEG stage, of pack_merge against its
    plain version (the plain pack, then the plain merge) and against
    ``index_add_`` of the same words (the one PyTorch call that computes the
@@ -983,7 +1000,7 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
     equal the CPU path's (``reference`` "cpu"), the host tier's ("host"),
     or the same call's with STITCH_TPU_DEVICE_DECODE=0 on the card
     ("host_decode"); a tuple names several. Returns (output, launches,
-    counters)."""
+    counters, seconds)."""
     import os
 
     import image_stitch_tpu_torch
@@ -1053,7 +1070,7 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
             t0 = time.perf_counter()
             off = image_stitch_tpu_torch.EncodeCounters()
             ref = image_stitch_tpu_torch.concat_to_buffer(opts, device=dev, counters=off)
-            secs = time.perf_counter() - t0
+            ref_secs = time.perf_counter() - t0
         finally:
             del os.environ["STITCH_TPU_DEVICE_DECODE"]
         if off.decode_tile_bands or TRACE["decode_band"] or TRACE["uploads"]:
@@ -1062,8 +1079,8 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
             fail(f"{name}: output ({len(out)} B) != the host-decode run's ({len(ref)} B)")
         say(f"main path {name}: byte-identical to the same call with "
             f"STITCH_TPU_DEVICE_DECODE=0 ({TRACE['host_tiles']} tiles decoded on the host, "
-            f"{secs:.2f} s on the card)")
-    return out, launches, counters
+            f"{ref_secs:.2f} s on the card)")
+    return out, launches, counters, secs
 
 
 def add_launches(total: dict, launches: dict) -> None:
@@ -1071,13 +1088,14 @@ def add_launches(total: dict, launches: dict) -> None:
         total[k] = total.get(k, 0) + n
 
 
-def main_paths(cases: list[tuple], dev: torch.device) -> tuple[dict, int, tuple]:
+def main_paths(cases: list[tuple], dev: torch.device) -> tuple[dict, int, tuple, dict]:
     """Each (name, options, megapixels, kernels that must launch[,
     reference, expect]) case run on its own counts and held byte for byte
     against its reference (run_path). The most crowded band that the
     positioned runs hand to composite_segments is held against its plain
     version afterwards. Returns (launches summed over the runs, that
-    check's max |diff|, that band's (metas, srcs, bg, h, w))."""
+    check's max |diff|, that band's (metas, srcs, bg, h, w), each case's
+    (output, seconds) by name)."""
     from image_stitch_tpu_torch.ops import composite_device
 
     real = composite_device.composite_segments
@@ -1089,11 +1107,13 @@ def main_paths(cases: list[tuple], dev: torch.device) -> tuple[dict, int, tuple]
         return real(metas, srcs, bg, h, w)
 
     total: dict = {}
+    outs: dict = {}
     composite_device.composite_segments = capture
     undo = tracing()
     try:
         for name, opts, mp, must_launch, *rest in cases:
-            _out, launches, _counters = run_path(name, opts, mp, dev, must_launch, *rest)
+            out, launches, _counters, secs = run_path(name, opts, mp, dev, must_launch, *rest)
+            outs[name] = (out, secs)
             add_launches(total, launches)
     finally:
         composite_device.composite_segments = real
@@ -1102,7 +1122,7 @@ def main_paths(cases: list[tuple], dev: torch.device) -> tuple[dict, int, tuple]
         fail("no positioned band reached composite_segments")
     metas, srcs, bg, h, w = seen[0]
     err, _ = check_composite(metas, srcs, bg, h, w, "the positioned path's most crowded band")
-    return total, err, seen[0]
+    return total, err, seen[0], outs
 
 
 def api_checks(tiles: list[np.ndarray], tiles_png: list[bytes], dev: torch.device) -> None:
@@ -1554,6 +1574,220 @@ def device_profile(opts: dict, dev: torch.device) -> dict:
             "h2d_pinned": sum(r[2] for r in rows if "memcpy htod (pinned" in r[0].lower())}
 
 
+def expected_slabs(heights: list[int], shards: int, align: int) -> int:
+    """Non-empty row slabs of bands of ``heights`` rows over ``shards``
+    shards at ``align`` (``row_slabs``): the launches of a sharded kernel."""
+    from image_stitch_tpu_torch.parallel.mesh import row_slabs
+
+    return sum(sum(r1 > r0 for r0, r1 in row_slabs(h, shards, align)) for h in heights)
+
+
+def mesh_run(name: str, opts: dict, mesh, mp: float, dev: torch.device, ref: bytes,
+             expect: dict) -> tuple[dict, float]:
+    """One run over ``mesh`` through ``concat_to_buffer``, every kernel's
+    count set to 0 just before it and read just after: its bytes must equal
+    the single-device card run's ``ref``; filter select must launch once per
+    non-empty slab (``expect["filter_select"]``), fdct_quant once per
+    dispatch on a shard and symbol_streams, group_layout and pack_merge as
+    often plus re-packs (``expect["dispatches"]``), composite_segments once
+    per non-empty slab of each composited band (``expect["composite_slabs"]``
+    a band); no band may be coded on the host or on the host tier. Returns
+    (launches, MP/s)."""
+    import image_stitch_tpu_torch
+    from image_stitch_tpu_torch.ops import kernels as K
+
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    for k in COUNTED:
+        getattr(K, k).launches = 0
+    t0 = time.perf_counter()
+    out = image_stitch_tpu_torch.concat_to_buffer({**opts, "mesh": mesh}, device=dev,
+                                                  counters=counters)
+    secs = time.perf_counter() - t0
+    launches = {k: getattr(K, k).launches for k in COUNTED}
+    same_bytes(out, ref, f"mesh {name}", "single-device card")
+    say(f"mesh {name} over {mesh}: {mp:.1f} MP -> {len(out)} B in {secs:.3f} s, byte-identical "
+        f"to the single-device card run; launches {launches}; counters {counters}")
+    if counters.host_fallback_bands or counters.host_tier_bands:
+        fail(f"mesh {name}: bands coded on the host: {counters}")
+    if "filter_select" in expect and not (
+            launches["filter_select"] == counters.mesh_slabs == expect["filter_select"]):
+        fail(f"mesh {name}: {launches['filter_select']} filter launches, {counters.mesh_slabs} "
+             f"slabs, expected {expect['filter_select']}")
+    if "dispatches" in expect:
+        if counters.mesh_dispatches != expect["dispatches"]:
+            fail(f"mesh {name}: {counters.mesh_dispatches} dispatches on shards, expected "
+                 f"{expect['dispatches']}")
+        if launches["fdct_quant"] != counters.mesh_dispatches or any(
+                launches[k] != counters.mesh_dispatches + counters.repacks
+                for k in ("symbol_streams", "group_layout", "pack_merge")):
+            fail(f"mesh {name}: launches {launches} for {counters.mesh_dispatches} dispatches and "
+                 f"{counters.repacks} re-packs")
+    if "composite_slabs" in expect:
+        bands = counters.composite_bands_on_device + counters.composite_fallback_bands
+        if not counters.composite_bands_on_device or (
+                launches["composite_segments"] != bands * expect["composite_slabs"]):
+            fail(f"mesh {name}: {launches['composite_segments']} composite launches for {bands} "
+                 f"bands of {expect['composite_slabs']} slabs")
+    return launches, mp / secs
+
+
+def fused_step_check(tiles: list[np.ndarray], mesh, dev: torch.device) -> dict:
+    """``shard_grid_dual_step`` over ``mesh`` and ``fused_grid_dual_step`` on
+    one card over one 256-row band of the grid (its first tile row's top
+    rows): both must equal the plain versions on the CPU, the sharded step
+    launching filter select and fdct_quant once per non-empty slab. Times
+    the one-card step (device time and events; the plain step on the CPU by
+    the host clock) and the sharded one (events). Returns the timings, the
+    launches and the bytes bound's bytes."""
+    from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
+    from image_stitch_tpu_torch.ops import kernels as K
+    from image_stitch_tpu_torch.ops.fused import fused_grid_dual_step
+    from image_stitch_tpu_torch.parallel.mesh import shard_grid_dual_step
+
+    band = torch.from_numpy(np.stack([t[:BAND_ROWS] for t in tiles[:GRID]])[None])
+    prev = torch.zeros(GRID * TILE * 4, dtype=torch.uint8)
+    lq, cq = (torch.from_numpy(q) for q in quality_scaled_tables(QUALITY))
+    t0 = time.perf_counter()
+    plain = fused_grid_dual_step(band, prev, lq, cq)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    args = [t.to(dev) for t in (band, prev, lq, cq)]
+    step = shard_grid_dual_step(mesh)
+    for k in COUNTED:
+        getattr(K, k).launches = 0
+    sharded = step(*args)
+    launches = {k: getattr(K, k).launches for k in COUNTED}
+    one = fused_grid_dual_step(*args)
+    torch.cuda.synchronize()
+    for i, (p, o, sh) in enumerate(zip(plain, one, sharded)):
+        if not (torch.equal(o.cpu(), p) and torch.equal(sh.cpu(), p)):
+            fail(f"fused dual step: output {i} differs between the plain version, one card and "
+                 f"the mesh")
+    slabs = expected_slabs([BAND_ROWS], mesh.size, 8)
+    if (launches["filter_select"], launches["fdct_quant"]) != (slabs, slabs):
+        fail(f"shard_grid_dual_step: launches {launches}, expected {slabs} slabs")
+    moved = sum(t.numel() * t.element_size() for t in (*args, *one))
+    say(f"fused dual step over one {BAND_ROWS}x{GRID * TILE} band: shard_grid_dual_step over "
+        f"{mesh} == fused_grid_dual_step on one card == plain on the CPU; sharded launches "
+        f"{launches}")
+    return {"one_device": device_time(lambda: fused_grid_dual_step(*args), what="fused step"),
+            "one_events": time_cuda(lambda: fused_grid_dual_step(*args)),
+            "sharded_events": time_cuda(lambda: step(*args)),
+            "plain_ms": plain_ms, "launches": launches, "moved": moved}
+
+
+def mesh_phase(outs: dict, names: dict, cases: dict, tiles: list[np.ndarray],
+               tiles_png: list[bytes], sprites: list, dev: torch.device, card: str) -> dict:
+    """The mesh phase: the 67 MP grid to JPEG ri 1 and to PNG over a virtual
+    2 x 2 mesh on the card (four shards, four streams) and over
+    ``make_mesh(device_count())``, the positioned scene to PNG and JPEG over
+    the virtual mesh, each byte-identical to phase 4's single-device card
+    run (``outs``, reused, not run again); ``make_mesh(device_count() + 1)``
+    must raise; the fused steps; the card's peak memory over the 67 MP
+    virtual-mesh JPEG run may exceed the same run on the grid's top half by
+    two bands at most; the 67 MP JPEG run alternated between one card and
+    the virtual mesh, and profiled over the mesh. Prints the ``mesh:``
+    line; returns the launches summed over the runs, and the fused step's
+    timings."""
+    import image_stitch_tpu_torch
+    from image_stitch_tpu_torch.errors import StitchError
+    from image_stitch_tpu_torch.parallel.mesh import Mesh, make_mesh, row_slabs
+
+    t_phase = time.perf_counter()
+    virtual = Mesh([[dev, dev], [dev, dev]])
+    try:
+        make_mesh(torch.cuda.device_count() + 1)
+    except StitchError as exc:
+        say(f"mesh: make_mesh(device_count() + 1) raised StitchError: {exc}")
+    else:
+        fail("make_mesh(device_count() + 1) did not raise")
+    mp_grid = GRID * GRID * TILE * TILE / 1e6
+    heights = [BAND_ROWS] * (GRID * TILE // BAND_ROWS)
+    side_heights = [BAND_ROWS] * (SIDE // BAND_ROWS)
+    summary: dict = {}
+    total: dict = {}
+    peaks = {}
+    for label, mesh in (("virtual_2x2", virtual),
+                        ("make_mesh", make_mesh(torch.cuda.device_count()))):
+        runs = {}
+        for key, align, expect_key in (("grid_jpeg", 8, "dispatches"),
+                                       ("grid_png", 1, "filter_select")):
+            ref, single_secs = outs[names[key]]
+            expect = {expect_key: expected_slabs(heights, mesh.size, align)}
+            gc.collect()
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            launches, mps = mesh_run(f"{key} 67.1 MP", cases[key], mesh, mp_grid, dev, ref,
+                                     expect)
+            if (label, key) == ("virtual_2x2", "grid_jpeg"):
+                peaks["full"] = torch.cuda.max_memory_allocated(dev)
+            add_launches(total, launches)
+            runs[key] = {"mps": round(mps, 2), "single_device_mps": round(mp_grid / single_secs, 2),
+                         "launches": {k: v for k, v in launches.items() if v}}
+        summary[label] = runs
+    # The 67 MP JPEG run timed in turns, one card and the virtual mesh (one
+    # card, mesh, mesh, one card): host-bound rates move within a call, so
+    # only alternated runs compare them. Then one profiled mesh run.
+    alternated: dict = {"single_device": [], "virtual_2x2": []}
+    for which in ("single_device", "virtual_2x2", "virtual_2x2", "single_device"):
+        opts = cases["grid_jpeg"]
+        if which == "virtual_2x2":
+            opts = {**opts, "mesh": virtual}
+        t0 = time.perf_counter()
+        image_stitch_tpu_torch.concat_to_buffer(opts, device=dev)
+        alternated[which].append(round(mp_grid / (time.perf_counter() - t0), 2))
+    summary["grid_jpeg_alternated_mps"] = alternated
+    prof = device_profile({**cases["grid_jpeg"], "mesh": virtual}, dev)
+    summary["virtual_2x2_grid_jpeg_profile"] = {
+        "wall_ms": round(prof["wall_ms"], 1), "device_ms": round(prof["device_ms"], 1),
+        "busy_pct": round(100 * prof["device_ms"] / prof["wall_ms"], 2),
+        "activities_per_band": round(prof["activities"] / len(heights), 1)}
+    # The grid's top half, same run over the virtual mesh: the peak may grow
+    # by two bands at most between the two canvases (O(width) memory).
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    image_stitch_tpu_torch.concat_to_buffer(
+        {**cases["grid_jpeg"], "inputs": tiles_png[: GRID * GRID // 2], "mesh": virtual},
+        device=dev)
+    peaks["half"] = torch.cuda.max_memory_allocated(dev)
+    limit = 2 * BAND_ROWS * GRID * TILE * 4
+    if peaks["full"] - peaks["half"] > limit:
+        fail(f"mesh memory: the 67 MP run's peak {peaks['full']} B exceeds the top half's "
+             f"{peaks['half']} B by more than two bands ({limit} B)")
+    # The positioned scene: a sprite must cross an edge of the slabs.
+    edges = {b0 + r0 for b0 in range(0, SIDE, BAND_ROWS)
+             for r0, r1 in row_slabs(BAND_ROWS, virtual.size, 1) if 0 < r0 < r1}
+    crossing = sum(any(p.y < e < p.y + SPRITE for e in edges) for p in sprites[1:])
+    if not crossing:
+        fail("mesh positioned: no sprite crosses a slab edge")
+    runs = {}
+    for key, expect in (("positioned_png", {"filter_select": expected_slabs(side_heights, 4, 1),
+                                            "composite_slabs": 4}),
+                        ("positioned_jpeg", {"dispatches": len(side_heights),
+                                             "composite_slabs": 4})):
+        ref, single_secs = outs[names[key]]
+        launches, mps = mesh_run(key, cases[key], virtual, SIDE * SIDE / 1e6, dev, ref, expect)
+        add_launches(total, launches)
+        runs[key] = {"mps": round(mps, 2),
+                     "single_device_mps": round(SIDE * SIDE / 1e6 / single_secs, 2),
+                     "launches": {k: v for k, v in launches.items() if v}}
+    summary["virtual_2x2"].update(runs)
+    fused = fused_step_check(tiles, virtual, dev)
+    add_launches(total, fused["launches"])
+    summary["fused_dual_step"] = {
+        "one_device_ms": round(fused["one_device"]["median"], 4),
+        "one_device_events_ms": round(fused["one_events"]["median"], 4),
+        "virtual_2x2_events_ms": round(fused["sharded_events"]["median"], 4),
+        "plain_cpu_ms": round(fused["plain_ms"], 1), "bytes": fused["moved"],
+        "bound_ms": round(bound_ms(fused["moved"]), 4)}
+    summary["memory_peak_bytes"] = {"grid_jpeg_67mp": peaks["full"], "top_half": peaks["half"],
+                                    "limit_growth": limit}
+    summary["sprites_across_slab_edges"] = crossing
+    summary["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    say(f"mesh: {json.dumps(summary)} [{card}]")
+    return total, fused
+
+
 def bound_ms(n_bytes: int) -> float:
     """Least time the card could take to move ``n_bytes`` (each input read
     once, each output written once) at the H100's 3.35 TB/s."""
@@ -1643,7 +1877,7 @@ def main() -> None:
     n_bands = GRID * TILE // BAND_ROWS
     encode = ("fdct_quant", "symbol_streams", "group_layout", "pack_merge")
     decode = ("idct_dequant", "ycc_rgba")
-    launches, comp_err, real_band = main_paths([
+    launches, comp_err, real_band, outs = main_paths([
         (f"grid -> JPEG ri=1 444 q{QUALITY}", grid_jpeg, mp_grid, encode, "host",
          {"decode_band": 0, "device_bands": 0}),
         (f"JPEG tiles grid -> JPEG ri=1 444 q{QUALITY}", grid_tiles, mp_grid, decode + encode,
@@ -1685,6 +1919,16 @@ def main() -> None:
     lap("phase 4, JpegEncoder and the command line")
     trace_check(tiles, dev)
     lap("phase 4, device_trace")
+    positioned_jpeg = {**positioned, "outputFormat": "jpeg", "jpegQuality": QUALITY}
+    mesh_launches, fused = mesh_phase(
+        outs, {"grid_jpeg": f"grid -> JPEG ri=1 444 q{QUALITY}",
+               "grid_png": "grid -> PNG 8-bit level 6", "positioned_png": "positioned -> PNG",
+               "positioned_jpeg": f"positioned -> JPEG q{QUALITY}"},
+        {"grid_jpeg": grid_jpeg, "grid_png": grid_png, "positioned_png": positioned,
+         "positioned_jpeg": positioned_jpeg}, tiles, tiles_png, sprites, dev, card)
+    add_launches(launches, mesh_launches)
+    say(f"launches of the main paths and the mesh phase, summed: {launches}")
+    lap("phase 4, mesh")
 
     # 5. Timing.
     t, band_errs, moved = band_timing(tiles, dev)

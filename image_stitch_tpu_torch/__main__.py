@@ -5,7 +5,9 @@ wrapper over the port's ``concat_to_file``, so every option maps 1:1 onto
 ``ConcatOptions``. ``--device`` (``cuda`` by default; ``cpu`` for the plain
 torch versions of the kernels) is the keyword of ``concat_to_file`` and no
 option; ``cuda`` without a card is an error, never a run on the CPU.
-``--mesh`` is parsed so that command lines carry over, and refused.
+``--mesh N`` shards the band programs over N cards, or with ``--device
+cpu`` over N virtual CPU shards (8 at most); more than there are is an
+error that names the devices.
 
 Examples:
     python -m image_stitch_tpu_torch a.png b.png c.png d.png --columns 2 -o out.png
@@ -48,8 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--mesh", type=int, default=0,
-        help="shard band programs over N accelerator devices (not supported "
-        "by this package: an error)",
+        help="shard band programs over N devices: cards, or virtual shards "
+        "of the CPU with --device cpu",
     )
     p.add_argument(
         "--device", default="cuda",

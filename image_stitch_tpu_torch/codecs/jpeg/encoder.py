@@ -18,7 +18,10 @@ class's, copied; every band goes to ``TorchJpegEncoder`` on ``device``.
 A band may be a host array, which ``TorchJpegEncoder`` uploads, or a
 tensor on ``device`` (decoded or blended there), which stays there: its
 pending rows, edge padding and restart-group holdback are torch ops on the
-device. Host and device bands may alternate in one stream. Contract
+device. Host and device bands may alternate in one stream. With a
+``mesh`` (``parallel.mesh``) the restart groups are packed on its shards;
+a ``ShardedBand`` of whole groups goes to them as it lies, any other is
+joined on the mesh's first device. Contract
 preserved from the reference
 (src/jpeg-encoder.ts:96-264):
 - consumes 8-row RGBA MCU strips; SOI + headers are emitted with the first
@@ -54,6 +57,7 @@ from ...ops.counters import EncodeCounters
 from ...ops.device import resolve_device
 from ...ops.jpeg_dct import band_to_blocks_islow, band_to_blocks_islow_420
 from ...ops.jpeg_entropy_device import TorchJpegEncoder
+from ...parallel.mesh import Mesh, ShardedBand
 from .huffman import BitPacker, HuffmanEncoder, interleave_mcus
 from .tables import (
     STD_AC_CHROMA_BITS,
@@ -74,7 +78,10 @@ MCU_HEIGHT = 8
 
 def _repeat_edge(a, n: int, axis: int):
     """``a`` with its last row (axis 0) or column (axis 1) repeated ``n``
-    more times: a host array or a tensor, as given."""
+    more times: a host array, a tensor or, along axis 1, a ``ShardedBand``,
+    as given."""
+    if isinstance(a, ShardedBand):
+        return ShardedBand([(r0, _repeat_edge(t, n, axis)) for r0, t in a.slabs])
     edge = a[-1:] if axis == 0 else a[:, -1:]
     if isinstance(a, torch.Tensor):
         return torch.cat([a, edge.repeat_interleave(n, dim=axis)], dim=axis)
@@ -99,7 +106,7 @@ class TorchStreamingJpegEncoder:
 
     def __init__(self, width: int, height: int, quality: int = 85,
                  sampling: str = "444", restart_interval_rows: int = 0, *,
-                 device, counters: EncodeCounters | None = None):
+                 device, counters: EncodeCounters | None = None, mesh: Mesh | None = None):
         if width < 1 or height < 1:
             raise StitchError(f"Invalid JPEG dimensions: {width}x{height}")
         if not (1 <= quality <= 100):
@@ -143,6 +150,7 @@ class TorchStreamingJpegEncoder:
             sampling=sampling,
             local_words=local_words_for_quality(quality),
             counters=counters,
+            mesh=mesh,
         )
 
     # ----- headers ------------------------------------------------------ #
@@ -200,13 +208,19 @@ class TorchStreamingJpegEncoder:
 
     def encode_band(self, band) -> Iterator[bytes]:
         """Consume an (h, W, 4) uint8 band, a host array or a tensor on the
-        encoder's device (a tensor elsewhere raises); yields encoded
-        bytes."""
+        encoder's device (a tensor elsewhere raises), or a ``ShardedBand``;
+        yields encoded bytes."""
         if self._finished:
             raise StitchError("JPEG encoder already finished")
+        # A ShardedBand of whole restart groups goes to the shards as it
+        # lies; any other is joined on the mesh's first device.
+        group_rows = self._restart_rows * self._mcu_h
+        if isinstance(band, ShardedBand) and (
+                not group_rows or self._pending is not None or band.shape[0] % group_rows):
+            band = self._dev_encoder.on_device(band)
         if isinstance(band, torch.Tensor):
             band = self._dev_encoder.on_device(band)
-        else:
+        elif not isinstance(band, ShardedBand):
             band = np.asarray(band, dtype=np.uint8)
         if band.shape[1] != self.width:
             raise StitchError(
@@ -227,7 +241,7 @@ class TorchStreamingJpegEncoder:
         n_units = band.shape[0] // unit
         n_full = n_units * (unit // self._mcu_h)
         if n_full:
-            full = band[: n_full * self._mcu_h]
+            full = band if isinstance(band, ShardedBand) else band[: n_full * self._mcu_h]
             # One-band lookahead: submit this band (device computes + packs
             # bits), emit the previous band's bytes meanwhile.
             if self._pad_w:
@@ -237,6 +251,8 @@ class TorchStreamingJpegEncoder:
                 data = self._dev_encoder.wait(self._inflight.popleft())
                 if data:
                     yield data
+        if isinstance(band, ShardedBand):
+            return
         rest = band[n_full * self._mcu_h :]
         if rest.shape[0]:
             # A tensor's rows are a view: nothing writes to a submitted band.
@@ -597,13 +613,15 @@ class StreamingJpegEncoder:
             self._pending = None
         n_full = band.shape[0] // self._mcu_h
         if n_full:
-            full = band[: n_full * self._mcu_h]
+            full = band if isinstance(band, ShardedBand) else band[: n_full * self._mcu_h]
             data = self._fused_native_band(full)
             if data is not None:
                 yield data
             else:
                 yb, cbb, crb = self._quantize_band(full)
                 yield from self._emit_blocks(yb, cbb, crb)
+        if isinstance(band, ShardedBand):
+            return
         rest = band[n_full * self._mcu_h :]
         if rest.shape[0]:
             self._pending = rest.copy()

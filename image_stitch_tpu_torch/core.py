@@ -14,8 +14,13 @@ math per band there) and handed to the encoder without leaving it.
 no device is resolved and no tensor made; bands composite on the host
 (``ops.pixel.composite_band``), JPEG tiles decode on the host, and the
 bands go to the host ``StreamingJpegEncoder`` or ``ops.backend.
-NumpyBackend``. "auto" means "torch" until the auto policy is ported; the
-JAX package's mesh is not part of the copy.
+NumpyBackend``. "auto" means "torch" until the auto policy is ported.
+
+``mesh`` (an int or a ``parallel.mesh.Mesh``) sends the band programs to
+the mesh whatever ``backend`` says, as in the JAX package: the PNG filter,
+the JPEG restart groups and the positioned compositor run on its shards,
+each band's rows split by ``parallel.mesh.row_slabs``; JPEG tiles decode on
+its first device.
 
 Counterpart of the reference's ``CoreStreamingConcatenator``
 (src/image-concat-core.ts:279-1473), redesigned TPU-first: where the
@@ -66,13 +71,14 @@ from .layout.positioned import (
 from .ops.backend import get_backend, resolve_backend_name
 from .ops.composite_device import DeviceCompositor
 from .ops.counters import EncodeCounters
-from .ops.device import resolve_device
+from .ops.device import TorchBackend, resolve_device
 from .ops.pixel import (
     background_pixel,
     composite_band,
     convert_band,
     determine_common_format,
 )
+from .parallel.mesh import Mesh, ShardedBand, make_mesh
 from .types import (
     ConcatOptions,
     ImageHeader,
@@ -82,8 +88,10 @@ from .types import (
 from .utils import PNG_SIGNATURE, scanline_byte_length
 
 
-def _to_host(band: np.ndarray | torch.Tensor) -> np.ndarray:
-    return band.cpu().numpy() if isinstance(band, torch.Tensor) else band
+def _to_host(band) -> np.ndarray:
+    if isinstance(band, (torch.Tensor, ShardedBand)):
+        return band.cpu().numpy()
+    return band
 
 
 class ProgressTracker:
@@ -357,15 +365,16 @@ class TorchStreamingConcatenator:
     on the host tier under ``backend="numpy"`` (reference:
     CoreStreamingConcatenator, image-concat-core.ts:279).
 
-    ``mesh`` and a ``backend`` other than "auto", "torch", "numpy" or
-    "oracle" raise, since they name another package's path. The host tier
-    leaves ``device`` unread (``self.device`` is None)."""
+    A ``backend`` other than "auto", "torch", "numpy" or "oracle" raises,
+    since it names another package's path. The host tier leaves ``device``
+    unread (``self.device`` is None). ``mesh``: an int makes
+    ``make_mesh(n, device=...)`` (virtual shards on the CPU); a ``Mesh``
+    must be of ``device``'s kind. Either takes the band programs whatever
+    ``backend`` says, and ``self.device`` is the mesh's first device."""
 
     def __init__(self, options: ConcatOptions | Mapping[str, Any], device="cuda",
                  counters: EncodeCounters | None = None):
         self.options = ConcatOptions.from_any(options)
-        if self.options.mesh is not None:
-            raise StitchError("mesh is not supported by image_stitch_tpu_torch")
         self.backend = resolve_backend_name(self.options.backend)
         self.options.validate()
         from .utils.observability import PipelineStats
@@ -375,8 +384,27 @@ class TorchStreamingConcatenator:
         # absent in the reference.
         self.stats = PipelineStats()
         self._pool = None  # host_threads decode workers (lazy)
-        self.device = resolve_device(device) if self.backend == "torch" else None
+        self.mesh = self._resolved_mesh(device)
+        if self.mesh is not None:
+            self.device = self.mesh.flat()[0]
+        else:
+            self.device = resolve_device(device) if self.backend == "torch" else None
         self.counters = counters if counters is not None else EncodeCounters()
+
+    def _resolved_mesh(self, device) -> Mesh | None:
+        """``options.mesh`` (Mesh | int | None) as a Mesh on ``device``'s
+        kind, or None."""
+        m = self.options.mesh
+        if m is None:
+            return None
+        kind = resolve_device(device).type
+        if isinstance(m, Mesh):
+            if m.device_type != kind:
+                raise StitchError(f"mesh on {m.device_type} devices, but device={str(device)!r}")
+            return m
+        if isinstance(m, bool) or not isinstance(m, int):
+            raise StitchError(f"mesh must be an int or a Mesh, got {type(m).__name__}")
+        return make_mesh(m, device=kind)
 
     def _host_pool(self):
         """ThreadPoolExecutor for parallel per-input band pulls, or None for
@@ -891,7 +919,14 @@ class TorchStreamingConcatenator:
         # that oracle.
         compositor = None
         if blend and dtype == np.uint8 and self.device is not None:
-            compositor = DeviceCompositor(self.device, self.counters)
+            # Under a mesh, slabs of the consumer's alignment: whole
+            # restart groups for JPEG, rows for PNG.
+            align = 1
+            if opts.output_format == "jpeg":
+                align = 16 if opts.jpeg_sampling == "420" else 8
+                align *= max(1, opts.jpeg_restart_interval_rows)
+            compositor = DeviceCompositor(self.device, self.counters, mesh=self.mesh,
+                                          align=align)
 
         plans = build_band_plan(placed, out_header.height, band_h)
         # Per-image caches: positioned images can span bands; rows are read
@@ -976,8 +1011,11 @@ class TorchStreamingConcatenator:
         """Filter-select each band on the device (or on the host tier),
         feed the streaming deflator, emit IDAT chunks as they materialize
         (reference: streamCompressedData, image-concat-core.ts:309-383)."""
-        host_tier = self.backend == "numpy"
-        backend = get_backend(self.backend, self.device, self.counters)
+        host_tier = self.backend == "numpy" and self.mesh is None
+        if self.mesh is not None:
+            backend = TorchBackend(self.device, self.counters, mesh=self.mesh)
+        else:
+            backend = get_backend(self.backend, self.device, self.counters)
         chunks: list[bytes] = []
         deflator = StreamingDeflator(
             level=self.options.png_compression_level,
@@ -1045,10 +1083,10 @@ class TorchStreamingConcatenator:
             restart_interval_rows=self.options.jpeg_restart_interval_rows,
             counters=self.counters,
         )
-        if self.backend == "numpy":
+        if self.backend == "numpy" and self.mesh is None:
             encoder = StreamingJpegEncoder(**kwargs)
         else:
-            encoder = TorchStreamingJpegEncoder(**kwargs, device=self.device)
+            encoder = TorchStreamingJpegEncoder(**kwargs, device=self.device, mesh=self.mesh)
         yield from encoder.header()
         for canvas in bands:
             if canvas.dtype not in (np.uint8, torch.uint8) or canvas.ndim != 3:

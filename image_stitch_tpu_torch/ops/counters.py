@@ -21,7 +21,9 @@ class EncodeCounters:
     two launches each, whatever the number of tiles). Bands encoded by the
     host tier (``backend="numpy"``: the host ``StreamingJpegEncoder``, and
     ``core._encode_png`` on ``ops.backend.NumpyBackend``), which launches no
-    kernel."""
+    kernel. Under a mesh (``parallel.mesh``): the JPEG dispatches made on
+    its shards (each one quantize, symbols, layout and pack; a band's tail
+    group included) and the PNG slabs filtered on them."""
 
     bands: int = 0
     repacks: int = 0
@@ -32,3 +34,5 @@ class EncodeCounters:
     decode_tile_bands: int = 0
     decode_bands_on_device: int = 0
     host_tier_bands: int = 0
+    mesh_dispatches: int = 0
+    mesh_slabs: int = 0

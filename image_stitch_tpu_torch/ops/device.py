@@ -6,7 +6,8 @@
 ``kernels.fdct_quant`` (csrc/fdct_quant.cu), on a CPU band its plain
 version (``ops/jpeg_dct.py``). ``TorchBackend`` is the counterpart of that
 module's ``JaxBackend`` for PNG output: its filter select is the CUDA
-kernel ``kernels.filter_select``.
+kernel ``kernels.filter_select``, launched once per band, or with a
+``mesh`` once per non-empty row slab, on the slab's shard.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..errors import StitchError
+from ..parallel.mesh import Mesh, band_rows, row_slabs
 from .counters import EncodeCounters
 from .kernels import fdct_quant, filter_select, png_bytes
 
@@ -52,14 +54,15 @@ def jpeg_quantize_420(band: torch.Tensor, luma_q: torch.Tensor, chroma_q: torch.
 @dataclass
 class PendingFilter:
     """A submitted band's filter select. ``types``, ``filtered`` and
-    ``last`` are host tensors (pinned on CUDA) that ``done`` marks filled;
+    ``last`` are host tensors (pinned on CUDA) that the events in ``done``
+    mark filled (one, or under a mesh one per slab; none on the CPU);
     ``carry`` is the last raw row on the device, the next band's ``prev``."""
 
     types: torch.Tensor
     filtered: torch.Tensor
     last: torch.Tensor
     carry: torch.Tensor
-    done: torch.cuda.Event | None
+    done: list[torch.cuda.Event]
 
 
 class TorchBackend:
@@ -70,13 +73,22 @@ class TorchBackend:
     band through pinned memory (a tensor is taken where it lies), launches
     the filter kernel and queues the read-back into pinned host buffers on
     the current stream. The carry row stays on the device from band to
-    band. ``png_filter_band_wait`` is the only place that synchronises."""
+    band. ``png_filter_band_wait`` is the only place that synchronises.
+
+    With ``mesh``, the counterpart of ``JaxBackend(mesh=)``: the band's rows
+    split by ``row_slabs(h, mesh.size, 1)``, each non-empty slab filtered on
+    its shard after the raw row just above it (the one-row halo; from a host
+    band it is uploaded with the slab) and read back into its rows of the
+    band's pinned buffers on the shard's stream. The carry is the last
+    slab's last raw row."""
 
     name = "torch"
 
-    def __init__(self, device, counters: EncodeCounters | None = None):
+    def __init__(self, device, counters: EncodeCounters | None = None,
+                 mesh: Mesh | None = None):
         self.device = torch.device(device)
         self.counters = counters if counters is not None else EncodeCounters()
+        self.mesh = mesh
 
     def _on_device(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
@@ -98,6 +110,8 @@ class TorchBackend:
         """Queue the filter select of ``canvas`` ((H, W, 4) uint8 or uint16,
         host array or tensor) after ``prev_row`` (the previous band's last
         raw row, host or device, or None at the image start)."""
+        if self.mesh is not None:
+            return self._filter_sharded(canvas, prev_row)
         band = self._on_device(canvas)
         if band.ndim != 3 or band.dtype not in (torch.uint8, torch.uint16):
             raise TypeError(f"expected an (H, W, 4) uint8 or uint16 band, got "
@@ -112,18 +126,61 @@ class TorchBackend:
         carry = png_bytes(band[-1:])[0]
         self.counters.png_bands += 1
         if band.device.type != "cuda":
-            return PendingFilter(types, filtered, carry, carry, None)
+            return PendingFilter(types, filtered, carry, carry, [])
         done = torch.cuda.Event()
         pending = PendingFilter(self._to_host(types), self._to_host(filtered),
-                                self._to_host(carry), carry, done)
+                                self._to_host(carry), carry, [done])
         done.record()
         return pending
+
+    def _filter_sharded(self, canvas, prev_row) -> PendingFilter:
+        """The band's filter select over the mesh, slab by slab."""
+        if canvas.ndim != 3 or canvas.dtype not in (np.uint8, np.uint16, torch.uint8,
+                                                    torch.uint16):
+            raise TypeError(f"expected an (H, W, 4) uint8 or uint16 band, got "
+                            f"{tuple(canvas.shape)} {canvas.dtype}")
+        h, w, c = canvas.shape
+        wide = canvas.dtype in (np.uint16, torch.uint16)
+        bpp, n = (8, w * c * 2) if wide else (4, w * c)
+        on_card = self.mesh.device_type == "cuda"
+        types = torch.empty(h, dtype=torch.uint8, pin_memory=on_card)
+        filtered = torch.empty((h, n), dtype=torch.uint8, pin_memory=on_card)
+        last = torch.empty(n, dtype=torch.uint8, pin_memory=on_card)
+        host_band = isinstance(canvas, np.ndarray)
+        done, carry = [], None
+        for i, (r0, r1) in enumerate(row_slabs(h, self.mesh.size, 1)):
+            if r1 == r0:
+                continue
+            with self.mesh.shard(i) as dev:
+                if host_band and r0:
+                    rows = band_rows(canvas, r0 - 1, r1, dev)  # the halo row with the slab
+                    prev, slab = png_bytes(rows[:1])[0], rows[1:]
+                else:
+                    slab = band_rows(canvas, r0, r1, dev).contiguous()
+                    if r0:
+                        prev = png_bytes(band_rows(canvas, r0 - 1, r0, dev))[0]
+                    elif prev_row is None:
+                        prev = torch.zeros(n, dtype=torch.uint8, device=dev)
+                    else:
+                        prev = band_rows(prev_row[None], 0, 1, dev)[0]
+                t, f = filter_select(slab, prev.contiguous(), bpp)
+                types[r0:r1].copy_(t, non_blocking=True)
+                filtered[r0:r1].copy_(f, non_blocking=True)
+                if r1 == h:
+                    carry = png_bytes(slab[-1:])[0]
+                    last.copy_(carry, non_blocking=True)
+                if on_card:
+                    done.append(torch.cuda.Event())
+                    done[-1].record()
+            self.counters.mesh_slabs += 1
+        self.counters.png_bands += 1
+        return PendingFilter(types, filtered, last, carry, done)
 
     @staticmethod
     def png_filter_band_wait(pending: PendingFilter) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(types (H,) uint8, filtered (H, N) uint8, last raw row (N,))."""
-        if pending.done is not None:
-            pending.done.synchronize()
+        for done in pending.done:
+            done.synchronize()
         return pending.types.numpy(), pending.filtered.numpy(), pending.last.numpy()
 
     def png_filter_band(self, canvas, prev_row) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -24,6 +24,10 @@ that starts at ``bit_base``. ``TorchJpegEncoder`` drives them band by band:
 ``submit`` queues device work and never waits for it; ``wait`` reads the
 results back, adds 0xFF stuffing, RST markers and the sub-byte carry, and
 codes a band on the host, exactly, when it overflows every device budget.
+With a ``mesh`` (the counterpart of ``DeviceJpegEncoder(mesh=)``) a band's
+whole restart groups are dealt over the mesh's shards by ``row_slabs``,
+each shard's slab packed on its own device and stream; the handles stay in
+row order, so the markers and the bytes are those of one device.
 
 Bit words are int32 tensors holding uint32 bit patterns (see
 ops/kernels.py). Symbol codes are below 2^27 and fit int32 as they are.
@@ -32,6 +36,7 @@ ops/kernels.py). Symbol codes are below 2^27 and fit int32 as they are.
 from __future__ import annotations
 
 import collections
+import contextlib
 from typing import Mapping
 
 import numpy as np
@@ -39,6 +44,7 @@ import torch
 
 from ..codecs.jpeg.huffman import BitPacker, HuffmanEncoder, interleave_mcus
 from ..codecs.jpeg.tables import ZIGZAG, huffman_lut
+from ..parallel.mesh import Mesh, ShardedBand, band_rows, row_slabs
 from .counters import EncodeCounters
 from .device import jpeg_quantize, jpeg_quantize_420
 from .kernels import group_layout, pack_merge, symbol_streams
@@ -351,6 +357,14 @@ class TorchJpegEncoder:
     values back. With ``restart_interval_rows`` > 0 each band is packed as
     independent restart groups; the caller submits group-aligned bands, and
     a shorter group only at the end of the image.
+
+    With ``mesh``, ``device`` is the mesh's first device. The band's whole
+    restart groups are split by ``row_slabs(rows, mesh.size, ri * mcu_px)``
+    and each non-empty slab is read onto its shard (uploaded from a host
+    band; viewed or copied from a tensor or a ``ShardedBand``) and packed
+    there; the final short group goes to the first shard. Without restart
+    groups the carried stream stays on the first shard. The tables are made
+    once per distinct device of the mesh.
     """
 
     # Bucketed per-group capacity budgets in bits/px (the JAX package's
@@ -361,13 +375,17 @@ class TorchJpegEncoder:
                  device, cap_bits_per_px: int = DEFAULT_CAP_BITS_PER_PX,
                  restart_interval_rows: int = 0, sampling: str = "444",
                  local_words: int = LOCAL_WORDS,
-                 counters: EncodeCounters | None = None):
-        self.device = canonical_device(device)
+                 counters: EncodeCounters | None = None, mesh: Mesh | None = None):
+        self.mesh = mesh
+        self.device = mesh.flat()[0] if mesh is not None else canonical_device(device)
         self.counters = counters if counters is not None else EncodeCounters()
         self._local_words = int(local_words)
-        self._lq = _to_int32(luma_q, self.device)
-        self._cq = _to_int32(chroma_q, self.device)
-        self._luts = build_entropy_luts(dc_luma, ac_luma, dc_chroma, ac_chroma, self.device)
+        # Quantizers and symbol tables on each device the encoder runs on.
+        self._tables = {
+            dev: (_to_int32(luma_q, dev), _to_int32(chroma_q, dev),
+                  build_entropy_luts(dc_luma, ac_luma, dc_chroma, ac_chroma, dev))
+            for dev in (mesh.distinct() if mesh is not None else [self.device])
+        }
         self._host_tables = (dc_luma, ac_luma, dc_chroma, ac_chroma)
         self._prev_dc = torch.zeros(3, dtype=torch.int32, device=self.device)
         self._bit_base = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -399,7 +417,10 @@ class TorchJpegEncoder:
     def on_device(self, band) -> torch.Tensor:
         """``band`` as an (H, W, C >= 3) uint8 tensor on the encoder's
         device: a tensor is taken where it lies, and must lie there (no
-        copy from another device); a host array is uploaded."""
+        copy from another device); a host array is uploaded; a
+        ``ShardedBand``'s slabs are joined there."""
+        if isinstance(band, ShardedBand):
+            band = band.rows(0, band.shape[0], self.device)
         if not isinstance(band, torch.Tensor):
             return self._upload(band)
         if band.device != self.device:
@@ -411,26 +432,43 @@ class TorchJpegEncoder:
 
     def _quantize(self, band: torch.Tensor):
         fn = jpeg_quantize_420 if self._sampling == "420" else jpeg_quantize
-        return fn(band, self._lq, self._cq)
+        lq, cq, _luts = self._tables[band.device]
+        return fn(band, lq, cq)
+
+    def _on_shard(self, shard: int | None):
+        """The context of mesh shard ``shard``; none without a mesh."""
+        return contextlib.nullcontext() if shard is None else self.mesh.shard(shard)
 
     def submit(self, band):
         """Queue one band (rows a multiple of the MCU height, width padded
-        to whole MCUs), a host array or a tensor on the encoder's device;
-        returns a handle for ``wait``."""
-        dev_band = self.on_device(band)
-        self.counters.bands += 1
-        if self._restart_rows:
-            return self._submit_groups(dev_band)
+        to whole MCUs), a host array or a tensor on the encoder's device (or
+        a ``ShardedBand`` under a mesh); returns a handle for ``wait``."""
+        if self.mesh is not None and self._restart_rows:
+            if not isinstance(band, (torch.Tensor, ShardedBand)):
+                band = np.asarray(band)[..., :3]  # JPEG ignores alpha: upload less
+            self.counters.bands += 1
+            return self._submit_groups(band)
+        shard = None if self.mesh is None else 0
+        with self._on_shard(shard):
+            dev_band = self.on_device(band)
+            self.counters.bands += 1
+            if self._restart_rows:
+                return self._submit_groups(dev_band)
+            return self._submit_carried(dev_band, shard)
+
+    def _submit_carried(self, dev_band: torch.Tensor, shard: int | None):
         prev_dc_in = self._prev_dc
         n_pixels = dev_band.shape[0] * dev_band.shape[1]
         cap_words = max(64, (n_pixels * self._cap_bits_per_px + 31) // 32)
         blocks = self._quantize(dev_band)
         words, total_bits, new_dc, max_bb, next_base = _pack_carried(
-            *blocks, self._luts, prev_dc_in, self._bit_base, cap_words,
+            *blocks, self._tables[self.device][2], prev_dc_in, self._bit_base, cap_words,
             self._local_words, self._sampling,
         )
         self._prev_dc = new_dc
         self._bit_base = next_base
+        if shard is not None:
+            self.counters.mesh_dispatches += 1
         return ("carried", words, total_bits, cap_words, max_bb, blocks,
                 prev_dc_in, self._local_words)
 
@@ -445,34 +483,48 @@ class TorchJpegEncoder:
                 return min(b, float(MAX_CAP_BITS_PER_PX))
         return float(MAX_CAP_BITS_PER_PX)
 
-    def _submit_groups(self, band: torch.Tensor):
-        """The band's whole restart groups go in one dispatch; a final
-        shorter group (the tail of the image) in a second."""
+    def _submit_groups(self, band):
+        """The band's whole restart groups go in one dispatch, or under a
+        mesh in one dispatch per shard that holds some; a final shorter
+        group (the tail of the image) in a second, on the first shard."""
         ri = self._restart_rows
         mcu_rows = band.shape[0] // self._mcu_px
         tail_rows = mcu_rows % ri
         main_rows = mcu_rows - tail_rows
+        main_px = main_rows * self._mcu_px
         handles = []
-        if main_rows:
-            handles.append(
-                self._dispatch_pending(band[: main_rows * self._mcu_px], main_rows // ri)
-            )
+        if main_rows and self.mesh is None:
+            handles.append(self._dispatch_pending(band[:main_px], main_rows // ri))
+        elif main_rows:
+            group_px = ri * self._mcu_px
+            for i, (r0, r1) in enumerate(row_slabs(main_px, self.mesh.size, group_px)):
+                if r1 > r0:
+                    with self.mesh.shard(i) as dev:
+                        slab = band_rows(band, r0, r1, dev).contiguous()
+                        handles.append(self._dispatch_pending(slab, (r1 - r0) // group_px, i))
         if tail_rows:
-            handles.append(self._dispatch_pending(band[main_rows * self._mcu_px :], 1))
+            shard = None if self.mesh is None else 0
+            with self._on_shard(shard):
+                tail = band[main_px:] if self.mesh is None else band_rows(
+                    band, main_px, band.shape[0], self.device).contiguous()
+                handles.append(self._dispatch_pending(tail, 1, shard))
         return ("groups", handles)
 
-    def _dispatch_pending(self, band: torch.Tensor, n_groups: int):
+    def _dispatch_pending(self, band: torch.Tensor, n_groups: int, shard: int | None = None):
         """Quantize and pack ``n_groups`` equal restart groups in one
-        dispatch (the JAX package's batched dispatch, with a batch of 1)."""
+        dispatch (the JAX package's batched dispatch, with a batch of 1), on
+        mesh shard ``shard`` when there is one."""
         px_per_group = (band.shape[0] // n_groups) * band.shape[1]
         cap_words = max(64, (int(px_per_group * self._group_cap_bits_px()) + 31) // 32)
         blocks = self._quantize(band)
         dense, group_bits, max_bb, _ = pack_groups_from_blocks(
-            *blocks, self._luts, n_groups, cap_words,
+            *blocks, self._tables[band.device][2], n_groups, cap_words,
             sampling=self._sampling, local_words=self._local_words,
         )
+        if shard is not None:
+            self.counters.mesh_dispatches += 1
         return (dense, group_bits, max_bb, blocks, n_groups, cap_words,
-                px_per_group, self._local_words)
+                px_per_group, self._local_words, shard)
 
     # ---- wait --------------------------------------------------------------
 
@@ -501,7 +553,7 @@ class TorchJpegEncoder:
         cap_words = max(64, -(-need_per_group // 256) * 256)
         self.counters.repacks += 1
         dense, _bits, _max_bb, _ov = pack_groups_from_blocks(
-            *blocks, self._luts, n_groups, cap_words,
+            *blocks, self._tables[blocks[0].device][2], n_groups, cap_words,
             sampling=self._sampling, local_words=local_words,
         )
         return dense, cap_words
@@ -509,7 +561,7 @@ class TorchJpegEncoder:
     def _wait_groups(self, handles) -> bytes:
         out = bytearray()
         for (dense, bits, max_bb, blocks, n_groups, cap_words, px_per_group,
-             packed_lw) in handles:
+             packed_lw, shard) in handles:
             bits_h = bits.cpu().numpy().astype(np.int64)
             max_bb = int(max_bb)
             used = (bits_h + 31) // 32
@@ -518,7 +570,8 @@ class TorchJpegEncoder:
             pooled_over = total_used > n_groups * cap_words
             budget_over = max_bb > packed_lw * 32
             if pooled_over or budget_over:
-                repack = self._repack_on_device(blocks, bits_h, max_bb, n_groups)
+                with self._on_shard(shard):
+                    repack = self._repack_on_device(blocks, bits_h, max_bb, n_groups)
                 if repack is None:
                     self.counters.host_fallback_bands += 1
                     out += self._host_fallback_groups(blocks, n_groups)

@@ -318,6 +318,7 @@ filter_select.launches = 0
 
 # Columns of a segment's meta row (csrc/composite.cuh META_*).
 META_COLS = 6
+META_Y0, META_X0, META_H, META_W, META_OFFSET, META_STRIDE = range(META_COLS)
 
 
 def composite_segments_plain(metas: torch.Tensor, srcs: torch.Tensor, bg: Sequence[int],

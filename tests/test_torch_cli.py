@@ -5,7 +5,8 @@
 tests/unit/test_cli.py, with the output files equal byte for byte (the JAX
 package's CLI leaves the backend to its auto policy, which takes the host
 tier for these small canvases; the port's CPU path gives its bytes). Then
-what the port's CLI adds: ``--device``, and ``--mesh`` refused.
+what the port's CLI adds: ``--device``; ``--mesh`` over virtual CPU shards,
+with the JAX CLI's ``--mesh`` bytes, and refused past the shards there are.
 """
 
 import numpy as np
@@ -102,10 +103,18 @@ def test_cli_progress_goes_to_stderr(tile_files, tmp_path, capsys):
 
 
 def test_cli_mesh_is_refused_cleanly(tile_files, tmp_path, capsys):
-    rc = main([*tile_files, "--columns", "2", "-o", str(tmp_path / "m.png"), "--quiet",
-               "--mesh", "2", "--device", "cpu"])
+    """``--mesh 2 --device cpu`` writes the JAX CLI's ``--mesh 2`` file;
+    ``--mesh 64`` exits 1 with an error that names the devices, before the
+    file is opened."""
+    for name in ("m.png", "m.jpg"):
+        got, want = both([*tile_files, "--columns", "2", "--mesh", "2"], tmp_path, name)
+        assert got == want
+    rc = main([*tile_files, "--columns", "2", "-o", str(tmp_path / "m64.png"), "--quiet",
+               "--mesh", "64", "--device", "cpu"])
     assert rc == 1
-    assert "error: mesh is not supported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert err.startswith("error: mesh requests 64 devices") and "devices" in err
+    assert not (tmp_path / "m64.png").exists()
 
 
 def test_cli_device_cuda_without_a_card_exits_1(tile_files, tmp_path, capsys):

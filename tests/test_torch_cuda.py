@@ -607,3 +607,118 @@ def test_jpeg_tiles_grid_matches_host(cuda, ri, sampling):
     # whatever the tiles and components.
     assert after[0] - counts[0] == 4 and after[1] - counts[1] == 4
     assert after[2] > counts[2] and after[3] > counts[3]
+
+
+# ----------------------------------------------------------------- mesh --- #
+
+
+def virtual_mesh(cuda):
+    """A 2 x 2 mesh of four virtual shards on one card, a stream each."""
+    from image_stitch_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh([[cuda, cuda], [cuda, cuda]])
+
+
+def meshes(cuda):
+    from image_stitch_tpu_torch.parallel.mesh import make_mesh
+
+    return {"virtual 2x2": virtual_mesh(cuda), "every card": make_mesh(torch.cuda.device_count())}
+
+
+@pytest.mark.parametrize("fmt,ri,sampling", [("png", 0, "444"), ("jpeg", 0, "444"),
+                                             ("jpeg", 1, "444"), ("jpeg", 2, "420")])
+def test_mesh_grid_matches_host(cuda, fmt, ri, sampling):
+    """A grid over the virtual mesh and over every card: the host tier's
+    bytes; filter select once per non-empty slab, the encoder's kernels once
+    per dispatch on a shard; as many bands coded on the host (full-range
+    noise overflows the carried stream's budget) as on one card."""
+    rng = np.random.default_rng(9)
+    tiles = [png_from_array(rng.integers(0, 256, (72, 100, 4), dtype=np.uint8)) for _ in range(4)]
+    opts = {"inputs": tiles, "layout": {"columns": 2}, "bandHeight": 48, "outputFormat": fmt,
+            "jpegRestartIntervalRows": ri, "jpegSampling": sampling}
+    want = host(opts)
+    single = image_stitch_tpu_torch.EncodeCounters()
+    assert image_stitch_tpu_torch.concat_to_buffer(opts, device=cuda, counters=single) == want
+    for name, mesh in meshes(cuda).items():
+        counters = image_stitch_tpu_torch.EncodeCounters()
+        before = {w: w.launches for w in (K.filter_select, K.pack_merge, K.fdct_quant)}
+        got = image_stitch_tpu_torch.concat_to_buffer({**opts, "mesh": mesh}, device=cuda,
+                                                      counters=counters)
+        assert got == want, name
+        n = {w: w.launches - b for w, b in before.items()}
+        assert n[K.filter_select] == counters.mesh_slabs
+        assert n[K.pack_merge] == counters.mesh_dispatches + counters.repacks
+        assert n[K.fdct_quant] == counters.mesh_dispatches
+        assert counters.host_tier_bands == 0
+        assert counters.host_fallback_bands == single.host_fallback_bands
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpeg"])
+def test_mesh_positioned_matches_host(cuda, fmt):
+    """Sprites across the slabs' edges, composited on the virtual shards and
+    encoded where they lie."""
+    rng = np.random.default_rng(6)
+    opaque = rng.integers(0, 256, (64, 96, 4), dtype=np.uint8)
+    opaque[:, :, 3] = 255
+    alpha = rng.integers(0, 256, (40, 30, 4), dtype=np.uint8)
+    alpha[:, :, 3] = np.linspace(30, 230, 30).astype(np.uint8)[None, :]
+    opts = {"inputs": [PositionedImage(0, 0, png_from_array(opaque)),
+                       PositionedImage(20, 10, png_from_array(alpha))],
+            "bandHeight": 32, "outputFormat": fmt, "jpegRestartIntervalRows": 1}
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    before = K.composite_segments.launches
+    got = image_stitch_tpu_torch.concat_to_buffer({**opts, "mesh": virtual_mesh(cuda)},
+                                                  device=cuda, counters=counters)
+    assert got == host(opts)
+    assert counters.composite_bands_on_device == 2
+    # Slabs of 8 rows (PNG) or one restart group (JPEG): four a band.
+    assert K.composite_segments.launches - before == 8
+
+
+def test_mesh_fused_steps_match_one_device_and_plain(cuda):
+    from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
+    from image_stitch_tpu_torch.ops.fused import fused_grid_dual_step
+    from image_stitch_tpu_torch.parallel.mesh import shard_grid_dual_step
+
+    rng = np.random.default_rng(4)
+    tiles = torch.from_numpy(rng.integers(0, 256, (2, 4, 24, 32, 4), dtype=np.uint8))
+    prev = torch.from_numpy(rng.integers(0, 256, 4 * 32 * 4, dtype=np.uint8))
+    lq, cq = (torch.from_numpy(q) for q in quality_scaled_tables(85))
+    plain = fused_grid_dual_step(tiles, prev, lq, cq)
+    args = [t.to(cuda) for t in (tiles, prev, lq, cq)]
+    one = fused_grid_dual_step(*args)
+    sharded = shard_grid_dual_step(virtual_mesh(cuda))(*args)
+    torch.cuda.synchronize()
+    for p, o, s in zip(plain, one, sharded):
+        assert s.device == cuda
+        assert torch.equal(o.cpu(), p) and torch.equal(s.cpu(), p)
+
+
+def test_mesh_jpeg_tiles_match_host(cuda):
+    """JPEG tiles decoded on the mesh's first device, each shard encoding its
+    rows from there."""
+    rng = np.random.default_rng(2)
+    tiles = [jpeg_bytes(rng.integers(0, 256, (64, 80, 3), dtype=np.uint8), "420")
+             for _ in range(4)]
+    opts = {"inputs": tiles, "layout": {"columns": 2}, "outputFormat": "jpeg",
+            "jpegRestartIntervalRows": 1, "bandHeight": 32}
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    got = image_stitch_tpu_torch.concat_to_buffer({**opts, "mesh": virtual_mesh(cuda)},
+                                                  device=cuda, counters=counters)
+    assert got == host(opts)
+    assert counters.decode_bands_on_device == 4 and counters.mesh_dispatches == 16
+
+
+def test_mesh_refusals_on_the_card(cuda):
+    from image_stitch_tpu_torch.errors import StitchError
+    from image_stitch_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(StitchError, match="devices"):
+        make_mesh(torch.cuda.device_count() + 1)
+    opts = {"inputs": [png_from_array(np.zeros((8, 8, 4), np.uint8))], "layout": {"columns": 1}}
+    with pytest.raises(StitchError, match="mesh on cuda devices"):
+        image_stitch_tpu_torch.concat_to_buffer({**opts, "mesh": virtual_mesh(cuda)},
+                                                device="cpu")
+    # An int mesh on the card counts the cards, never CPU shards.
+    mesh = image_stitch_tpu_torch.TorchStreamingConcatenator({**opts, "mesh": 1}, device=cuda).mesh
+    assert mesh.flat() == [cuda]

@@ -6,10 +6,12 @@ image_stitch_tpu... import``; relative imports stay inside the port.
 (b) A fresh process imports every module of the port and runs
 ``concat_to_buffer(..., device="cpu")`` to JPEG and to PNG on a 2 x 2 grid,
 and a 2 x 2 grid of JPEG tiles (made by the port's encoder) to JPEG
-through the device-decode path, then the command line (``main`` of
+through the device-decode path, the sharded dual step
+(``parallel.mesh.run_multichip_demo``) and both grids over a mesh of 4
+virtual CPU shards, then the command line (``main`` of
 ``image_stitch_tpu_torch/__main__.py``) over tile files with ``--device
-cpu``; afterwards no module of ``image_stitch_tpu`` and no ``jax`` is
-loaded.
+cpu``, also with ``--mesh 2``; afterwards no module of ``image_stitch_tpu``
+and no ``jax`` is loaded.
 """
 
 import ast
@@ -54,7 +56,9 @@ def test_port_files_are_listed():
                 "image_stitch_tpu_torch/codecs/jpeg/encoder.py",
                 "image_stitch_tpu_torch/native/__init__.py",
                 "image_stitch_tpu_torch/codecs/png/decoder.py",
-                "image_stitch_tpu_torch/codecs/jpeg/owned_decoder.py"):
+                "image_stitch_tpu_torch/codecs/jpeg/owned_decoder.py",
+                "image_stitch_tpu_torch/parallel/mesh.py", "image_stitch_tpu_torch/ops/fused.py",
+                "image_stitch_tpu_torch/models/__init__.py"):
         assert rel in FILES
 
 
@@ -123,6 +127,15 @@ out = port.concat_to_buffer({"inputs": jpegs, "layout": {"columns": 2}, "bandHei
                              "outputFormat": "jpeg"}, device="cpu", counters=counters)
 assert out[:2] == b"\\xff\\xd8" and out[-2:] == b"\\xff\\xd9"
 assert counters.decode_bands_on_device and counters.decode_tile_bands
+from image_stitch_tpu_torch.parallel.mesh import run_multichip_demo
+assert run_multichip_demo(4, device="cpu")[1].shape == (32, 512)
+for fmt in ("jpeg", "png"):
+    counters = port.EncodeCounters()
+    out = port.concat_to_buffer({"inputs": tiles, "layout": {"columns": 2}, "outputFormat": fmt,
+                                 "jpegRestartIntervalRows": 1, "bandHeight": 16, "mesh": 4},
+                                device="cpu", counters=counters)
+    assert out[:2] in (b"\\xff\\xd8", b"\\x89P")
+    assert counters.mesh_dispatches + counters.mesh_slabs > counters.bands + counters.png_bands
 import os, tempfile
 from image_stitch_tpu_torch.__main__ import main
 with tempfile.TemporaryDirectory() as tmp:
@@ -132,9 +145,10 @@ with tempfile.TemporaryDirectory() as tmp:
         with open(paths[-1], "wb") as f:
             f.write(t)
     for name in ("out.png", "out.jpg"):
-        assert main([*paths, "--columns", "2", "-o", os.path.join(tmp, name), "--quiet",
-                     "--device", "cpu"]) == 0
-        assert os.path.getsize(os.path.join(tmp, name)) > 100
+        for mesh in ([], ["--mesh", "2"]):
+            assert main([*paths, "--columns", "2", "-o", os.path.join(tmp, name), "--quiet",
+                         "--device", "cpu", *mesh]) == 0
+            assert os.path.getsize(os.path.join(tmp, name)) > 100
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("image_stitch_tpu", "jax")))
 """

@@ -322,8 +322,10 @@ def test_positioned_stream_bands_are_host_arrays(fmt):
     assert counters.composite_bands_on_device > 0
 
 
-@pytest.mark.parametrize("bad", [{"mesh": 2}, {"backend": "jax"}, {"backend": "tpu"}])
+@pytest.mark.parametrize("bad", [{"mesh": 64}, {"backend": "jax"}, {"backend": "tpu"}])
 def test_other_paths_raise(bad):
+    """A mesh of more shards than the CPU mesh has, and the JAX package's
+    device backends, raise."""
     with pytest.raises(StitchError):
         port({**grid_options(64, 48, 0), **bad})
 
