@@ -86,6 +86,11 @@ path. Phases, each printing its lines before the last:
      against ``backend="numpy"``) and the command line
      (``image_stitch_tpu_torch.__main__.main``) over four tile files, on the
      card against ``device="cpu"``, byte for byte;
+   - packed bands: the 67 MP grid's 256-row bands, uploaded and handed to
+     ``TorchStreamingJpegEncoder.encode_band`` (the public
+     ``StreamingJpegEncoder``) as (256, 8192) uint32 views of their RGBA
+     (the JAX package's packed form), byte-identical to the grid's JPEG run
+     above; the encoder's four kernels once per band (plus re-packs);
    - ``device_trace``: one band of the grid to JPEG under it; its Chrome
      trace must list the kernels of fdct_quant and pack_merge, and its
      output equal the untraced run's;
@@ -130,7 +135,14 @@ path. Phases, each printing its lines before the last:
    JPEG with device decode on and off, and of host Huffman decode alone;
    a profiled run of JPEG tiles to JPEG, which must show one pinned
    host-to-device copy per decoded band and, besides, only the few small
-   copies of the encoder's set-up.
+   copies of the encoder's set-up; the 67 MP grid to JPEG ri 1 in turns
+   with bands of 256 and 1024 rows (256, 1024, 1024, 256, 256, 1024: a
+   1024-row band is one dispatch of the restart groups of four 256-row
+   bands, what the JAX package's STITCH_TPU_DEVICE_BATCH=4 sends), each
+   1024-row run byte-identical to the 256-row run of phase 4 with
+   fdct_quant launched 8 times, the card's peak memory of each, and the
+   host's decode and assembly alone at both heights in turns (one ``band
+   height rates:`` line, informational).
 
 The line before the last is a JSON object with one entry per kernel: its
 launches on the main paths, its max |kernel - plain|, its median time, the
@@ -1520,14 +1532,15 @@ def e2e_rates(opts: dict, megapixels: float, dev: torch.device, runs: int = 2) -
     return rates
 
 
-def host_assembly_rate(tiles_png: list[bytes]) -> float:
+def host_assembly_rate(tiles_png: list[bytes], band_rows: int = BAND_ROWS) -> float:
     """MP/s of the host layers alone (PNG decode, layout, band assembly) on
-    the grid, with no encode: the ceiling of the end-to-end paths."""
+    the grid in bands of ``band_rows``, with no encode: the ceiling of the
+    end-to-end paths."""
     from image_stitch_tpu_torch import TorchStreamingConcatenator
 
     opts = {
         "inputs": tiles_png, "layout": {"columns": GRID}, "outputFormat": "jpeg",
-        "bandHeight": BAND_ROWS,
+        "bandHeight": band_rows,
     }
     t0 = time.perf_counter()
     bands = TorchStreamingConcatenator(opts, device="cpu").stream_bands()
@@ -1788,6 +1801,92 @@ def mesh_phase(outs: dict, names: dict, cases: dict, tiles: list[np.ndarray],
     return total, fused
 
 
+def packed_check(tiles: list[np.ndarray], dev: torch.device, ref: bytes) -> dict:
+    """The 67 MP grid's 256-row bands, each uploaded and handed to
+    ``TorchStreamingJpegEncoder.encode_band`` as the (256, 8192) uint32
+    view of its RGBA, with every kernel's count set to 0 just before and
+    read just after: the bytes must equal the grid's JPEG run (``ref``),
+    fdct_quant must launch once per band and symbol_streams, group_layout
+    and pack_merge once per band and re-pack. Returns the launches."""
+    import image_stitch_tpu_torch
+    from image_stitch_tpu_torch.codecs.jpeg.encoder import TorchStreamingJpegEncoder
+    from image_stitch_tpu_torch.ops import kernels as K
+
+    width, per_tile = GRID * TILE, TILE // BAND_ROWS
+    n_bands = GRID * per_tile
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    enc = TorchStreamingJpegEncoder(width, width, QUALITY, restart_interval_rows=1,
+                                    device=dev, counters=counters)
+    for k in COUNTED:
+        getattr(K, k).launches = 0
+    t0 = time.perf_counter()
+    out = b"".join(enc.header())
+    for b in range(n_bands):
+        r, y = divmod(b, per_tile)
+        rgba = np.concatenate([tiles[r * GRID + c][y * BAND_ROWS:(y + 1) * BAND_ROWS]
+                               for c in range(GRID)], axis=1)
+        words = torch.from_numpy(rgba).to(dev).view(torch.uint32).view(BAND_ROWS, width)
+        out += b"".join(enc.encode_band(words))
+    out += b"".join(enc.finish())
+    secs = time.perf_counter() - t0
+    launches = {k: getattr(K, k).launches for k in COUNTED}
+    same_bytes(out, ref, "the grid's bands as packed uint32 into the encoder",
+               "the grid's JPEG run")
+    say(f"packed bands: {n_bands} bands of ({BAND_ROWS}, {width}) uint32 -> {len(out)} B in "
+        f"{secs:.3f} s, byte-identical to the grid's JPEG run; launches {launches}; "
+        f"counters {counters}")
+    if counters.host_fallback_bands or launches["fdct_quant"] != n_bands or any(
+            launches[k] != n_bands + counters.repacks
+            for k in ("symbol_streams", "group_layout", "pack_merge")):
+        fail(f"packed bands: launches {launches} for {n_bands} bands, counters {counters}")
+    return launches
+
+
+def band_height_rates(grid_jpeg: dict, ref: bytes, dev: torch.device, card: str) -> None:
+    """The 67 MP grid to JPEG ri 1 in turns with bands of 256 and 1024 rows
+    (256, 1024, 1024, 256, 256, 1024), MP/s each and the card's peak memory
+    of each height. A 1024-row band's restart groups go in one dispatch, as
+    four 256-row bands' do under the JAX package's
+    STITCH_TPU_DEVICE_BATCH=4; the host's decode and assembly bands grow
+    with it, so the host layers alone are timed at both heights too (256,
+    1024, 1024, 256). Each 1024-row run must give ``ref`` with 8 fdct_quant
+    launches. Prints the ``band height rates:`` line (informational)."""
+    import image_stitch_tpu_torch
+    from image_stitch_tpu_torch.ops import kernels as K
+
+    mp = GRID * GRID * TILE * TILE / 1e6
+    rates: dict = {256: [], 1024: []}
+    peak: dict = {}
+    for rows in (256, 1024, 1024, 256, 256, 1024):
+        K.fdct_quant.launches = 0
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = image_stitch_tpu_torch.concat_to_buffer({**grid_jpeg, "bandHeight": rows},
+                                                      device=dev)
+        rates[rows].append(mp / (time.perf_counter() - t0))
+        peak[rows] = max(peak.get(rows, 0), torch.cuda.max_memory_allocated(dev))
+        if rows == 1024:
+            same_bytes(out, ref, "grid_jpeg in 1024-row bands", "the 256-row run")
+            if K.fdct_quant.launches != GRID * TILE // rows:
+                fail(f"grid_jpeg in 1024-row bands: {K.fdct_quant.launches} fdct_quant "
+                     f"launches, expected {GRID * TILE // rows}")
+    host: dict = {256: [], 1024: []}
+    for rows in (256, 1024, 1024, 256):
+        host[rows].append(host_assembly_rate(grid_jpeg["inputs"], rows))
+    summary = {"grid_jpeg_mps_in_turns": {f"band_{r}": [round(x, 2) for x in v]
+                                          for r, v in rates.items()},
+               "mean_1024_over_256": round(statistics.mean(rates[1024])
+                                           / statistics.mean(rates[256]), 3),
+               "host_assembly_mps_in_turns": {f"band_{r}": [round(x, 2) for x in v]
+                                              for r, v in host.items()},
+               "host_assembly_1024_over_256": round(statistics.mean(host[1024])
+                                                    / statistics.mean(host[256]), 3),
+               "peak_bytes": {f"band_{r}": v for r, v in peak.items()}}
+    say(f"band height rates: {json.dumps(summary)} [{card}]")
+
+
 def bound_ms(n_bytes: int) -> float:
     """Least time the card could take to move ``n_bytes`` (each input read
     once, each output written once) at the H100's 3.35 TB/s."""
@@ -1917,6 +2016,10 @@ def main() -> None:
     lap("phase 4, main paths on the card and their references on the CPU")
     api_checks(tiles, tiles_png, dev)
     lap("phase 4, JpegEncoder and the command line")
+    grid_ref = outs[f"grid -> JPEG ri=1 444 q{QUALITY}"][0]
+    add_launches(launches, packed_check(tiles, dev, grid_ref))
+    say(f"launches of the main paths and the packed bands, summed: {launches}")
+    lap("phase 4, packed bands into the encoder")
     trace_check(tiles, dev)
     lap("phase 4, device_trace")
     positioned_jpeg = {**positioned, "outputFormat": "jpeg", "jpegQuality": QUALITY}
@@ -1995,6 +2098,8 @@ def main() -> None:
     say(f"host deflate alone (level 6, filtered rows): {host_deflate_rate(tiles, dev):.2f} MP/s "
         f"[{card}]")
     lap("phase 5, end-to-end rates and the host stages alone")
+    band_height_rates(grid_jpeg, grid_ref, dev, card)
+    lap("phase 5, band height rates in turns")
     for name, opts in (("grid_jpeg ri=1", grid_jpeg), ("jpeg_tiles ri=1", grid_tiles),
                        ("grid_png", grid_png)):
         p = device_profile(opts, dev)

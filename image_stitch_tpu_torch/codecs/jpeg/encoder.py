@@ -21,7 +21,11 @@ pending rows, edge padding and restart-group holdback are torch ops on the
 device. Host and device bands may alternate in one stream. With a
 ``mesh`` (``parallel.mesh``) the restart groups are packed on its shards;
 a ``ShardedBand`` of whole groups goes to them as it lies, any other is
-joined on the mesh's first device. Contract
+joined on the mesh's first device.
+
+Both encoders take a band byte-packed as (H, W) uint32 RGBA (the JAX
+package's packed decode handoff) as its (H, W, 4) uint8 view,
+``unpack_rgba``: the same bytes, so a stream may mix the two forms. Contract
 preserved from the reference
 (src/jpeg-encoder.ts:96-264):
 - consumes 8-row RGBA MCU strips; SOI + headers are emitted with the first
@@ -56,7 +60,7 @@ from ...ops.backend import resolve_backend_name
 from ...ops.counters import EncodeCounters
 from ...ops.device import resolve_device
 from ...ops.jpeg_dct import band_to_blocks_islow, band_to_blocks_islow_420
-from ...ops.jpeg_entropy_device import TorchJpegEncoder
+from ...ops.jpeg_entropy_device import TorchJpegEncoder, unpack_rgba
 from ...parallel.mesh import Mesh, ShardedBand
 from .huffman import BitPacker, HuffmanEncoder, interleave_mcus
 from .tables import (
@@ -209,9 +213,11 @@ class TorchStreamingJpegEncoder:
     def encode_band(self, band) -> Iterator[bytes]:
         """Consume an (h, W, 4) uint8 band, a host array or a tensor on the
         encoder's device (a tensor elsewhere raises), or a ``ShardedBand``;
-        yields encoded bytes."""
+        yields encoded bytes. A packed (h, W) uint32 band is taken as its
+        uint8 view, so held-back rows always join in that form."""
         if self._finished:
             raise StitchError("JPEG encoder already finished")
+        band = unpack_rgba(band)
         # A ShardedBand of whole restart groups goes to the shards as it
         # lies; any other is joined on the mesh's first device.
         group_rows = self._restart_rows * self._mcu_h
@@ -599,6 +605,8 @@ class StreamingJpegEncoder:
                 f"a tensor band on {band.device} reached the host JPEG encoder "
                 "(backend='numpy'); the host tier takes host arrays only"
             )
+        if getattr(band, "ndim", None) == 2:
+            band = unpack_rgba(np.asarray(band))
         band = np.asarray(band, dtype=np.uint8)
         if band.shape[1] != self.width:
             raise StitchError(

@@ -1089,7 +1089,11 @@ class TorchStreamingConcatenator:
             encoder = TorchStreamingJpegEncoder(**kwargs, device=self.device, mesh=self.mesh)
         yield from encoder.header()
         for canvas in bands:
-            if canvas.dtype not in (np.uint8, torch.uint8) or canvas.ndim != 3:
+            # A rank-2 uint32 band is byte-packed RGBA, which the encoders
+            # view as RGBA (as the JAX package's stage takes it); anything
+            # else must be 8-bit interleaved.
+            packed = canvas.ndim == 2 and canvas.dtype in (np.uint32, torch.uint32)
+            if not packed and (canvas.dtype not in (np.uint8, torch.uint8) or canvas.ndim != 3):
                 raise StitchError("JPEG encoding requires 8-bit canvas bands")
             self.stats.record_band(canvas.shape[0], canvas.shape[1])
             yield from encoder.encode_band(canvas)

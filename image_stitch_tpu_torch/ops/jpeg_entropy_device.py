@@ -346,6 +346,21 @@ def _words_to_bytes(words: torch.Tensor) -> bytes:
     return words.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
 
 
+def unpack_rgba(band):
+    """A rank-2 band is byte-packed RGBA, one little-endian uint32 a pixel
+    (r | g << 8 | b << 16 | a << 24, the JAX package's packed decode
+    handoff): returns its (H, W, 4) uint8 view, the same bytes. A host
+    array is viewed as the JAX package's ``_unpack_rgba`` views it; a
+    tensor is viewed where it lies, with no arithmetic (torch's CPU build
+    has no uint32 shifts). Any other band is returned as it is."""
+    if getattr(band, "ndim", None) != 2:
+        return band
+    h, w = band.shape
+    if isinstance(band, torch.Tensor):
+        return band.contiguous().view(torch.uint8).view(h, w, 4)
+    return np.ascontiguousarray(band).view(np.uint8).reshape(h, w, 4)
+
+
 class TorchJpegEncoder:
     """Streaming band encoder on a torch device; the counterpart of
     ``image_stitch_tpu.ops.jpeg_entropy_device.DeviceJpegEncoder``.
@@ -365,6 +380,9 @@ class TorchJpegEncoder:
     there; the final short group goes to the first shard. Without restart
     groups the carried stream stays on the first shard. The tables are made
     once per distinct device of the mesh.
+
+    A rank-2 band is byte-packed RGBA (``unpack_rgba``) and is taken as its
+    uint8 view.
     """
 
     # Bucketed per-group capacity budgets in bits/px (the JAX package's
@@ -418,7 +436,9 @@ class TorchJpegEncoder:
         """``band`` as an (H, W, C >= 3) uint8 tensor on the encoder's
         device: a tensor is taken where it lies, and must lie there (no
         copy from another device); a host array is uploaded; a
-        ``ShardedBand``'s slabs are joined there."""
+        ``ShardedBand``'s slabs are joined there; a packed band is viewed
+        as RGBA first."""
+        band = unpack_rgba(band)
         if isinstance(band, ShardedBand):
             band = band.rows(0, band.shape[0], self.device)
         if not isinstance(band, torch.Tensor):
@@ -443,6 +463,7 @@ class TorchJpegEncoder:
         """Queue one band (rows a multiple of the MCU height, width padded
         to whole MCUs), a host array or a tensor on the encoder's device (or
         a ``ShardedBand`` under a mesh); returns a handle for ``wait``."""
+        band = unpack_rgba(band)
         if self.mesh is not None and self._restart_rows:
             if not isinstance(band, (torch.Tensor, ShardedBand)):
                 band = np.asarray(band)[..., :3]  # JPEG ignores alpha: upload less

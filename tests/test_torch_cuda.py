@@ -609,6 +609,26 @@ def test_jpeg_tiles_grid_matches_host(cuda, ri, sampling):
     assert after[2] > counts[2] and after[3] > counts[3]
 
 
+# ---------------------------------------------------------- packed bands --- #
+
+
+@pytest.mark.parametrize("ri", [0, 2])
+def test_packed_band_on_the_card_matches_rgba(cuda, ri):
+    """An (H, W) uint32 band of little-endian RGBA on the card, fed in bands
+    that hold rows back, is encoded as its RGBA view: the bytes of the RGBA
+    band on the host tier."""
+    from image_stitch_tpu_torch.codecs.jpeg.encoder import (StreamingJpegEncoder,
+                                                            TorchStreamingJpegEncoder)
+
+    img = np.random.default_rng(ri).integers(0, 256, (40, 56, 4), dtype=np.uint8)
+    words = torch.from_numpy(img.view(np.uint32).reshape(40, 56).copy()).to(cuda)
+    ref = StreamingJpegEncoder(56, 40, 85, restart_interval_rows=ri)
+    want = b"".join(ref.encode_band(img)) + b"".join(ref.finish())
+    enc = TorchStreamingJpegEncoder(56, 40, 85, device=cuda, restart_interval_rows=ri)
+    got = b"".join(b"".join(enc.encode_band(words[y : y + 12])) for y in range(0, 40, 12))
+    assert got + b"".join(enc.finish()) == want
+
+
 # ----------------------------------------------------------------- mesh --- #
 
 

@@ -12,6 +12,13 @@
   backends: the fast path (counted), bands crossing tile boundaries, mixed
   PNG and JPEG, duplicate inputs, the off switch, restart groups,
   background holes.
+- The JAX package's byte-packed handoff (``STITCH_TPU_DECODE_PACKED=1``,
+  tests/integration/test_device_decode_grid.py:137-170 and
+  tests/unit/test_jpeg_idct_device.py:294-318): the port does not read the
+  variable, since its bands already lie on the card as interleaved RGBA;
+  its bytes equal the JAX package's packed runs, on a grid, with restart
+  groups and on a stream that mixes device and host plans, and the port's
+  encoder takes the JAX package's packed bands as RGBA.
 - The encoder's tensor bands: alone, alternating with host bands, and on
   the wrong device (which raises).
 - Streams past the device tier's bounds: DC accumulation to |coef| >= 2^15
@@ -418,6 +425,64 @@ def test_stream_bands_reads_device_bands_back():
     ref = list(CoreStreamingConcatenator({**opts, "backend": "numpy"}).stream_bands())
     for a, b in zip(bands, ref, strict=True):
         np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# The JAX package's packed handoff
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("ri", [0, 1])
+def test_decode_packed_variable_changes_nothing(decodes, monkeypatch, ri):
+    """With STITCH_TPU_DECODE_PACKED=1 the JAX package hands its bands over
+    packed; the port reads no such variable (``decodes`` would refuse a
+    ``packed=`` argument): the same device decodes, into band tensors, and
+    the JAX package's packed bytes."""
+    opts = options([jpeg_tile(s, 64, 64) for s in range(4)], jpegRestartIntervalRows=ri)
+    plain = port(opts)
+    calls = list(decodes)
+    decodes.clear()
+    monkeypatch.setenv("STITCH_TPU_DECODE_PACKED", "1")
+    assert port(opts) == plain == jax_package(opts, "jax") == jax_package(opts, "numpy")
+    assert decodes == calls and len(calls) == 4 * 2 and all(into for *_, into in calls)
+
+
+def test_decode_packed_mixed_plan_stream(decodes, monkeypatch):
+    """Tiles 56 rows high in 16-row bands: the JAX package packs the bands
+    it decodes whole and interleaves those assembled on the host; the port
+    gives its bytes with both plans in one stream."""
+    monkeypatch.setenv("STITCH_TPU_DECODE_PACKED", "1")
+    opts = options([jpeg_tile(s, 48, 56) for s in range(4)], band_height=16)
+    assert port(opts) == jax_package(opts, "jax") == jax_package(opts, "numpy")
+    assert {into for *_, into in decodes} == {True, False}
+
+
+@pytest.mark.parametrize("gray", [False, True])
+def test_jax_packed_decode_band_into_the_port_encoder(gray):
+    """The JAX package's ``decode_band(packed=True)`` on a device return is
+    the little-endian pack of the RGBA that the port's ``decode_band``
+    gives; the port's encoders take that packed band as its RGBA: the
+    same bytes."""
+    rng = np.random.default_rng(22)
+    if gray:
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (40, 56), dtype=np.uint8), mode="L").save(
+            buf, "JPEG", quality=85)
+        data = buf.getvalue()
+    else:
+        data = jpeg(rng.integers(0, 256, (40, 56, 3), dtype=np.uint8), 85, "420")
+    rgba = DeviceJpegDecoder(data).decode_band(0, 40)
+    packed = np.asarray(JaxDecoder(data).decode_band(0, 40, return_device=True, packed=True))
+    assert packed.dtype == np.uint32 and packed.shape == (40, 56)
+    np.testing.assert_array_equal(packed.view(np.uint8).reshape(40, 56, 4), rgba)
+
+    def encoded(band, tensor):
+        enc = TorchStreamingJpegEncoder(56, 40, 85, device="cpu", restart_interval_rows=1)
+        band = torch.from_numpy(band.copy()) if tensor else band
+        return b"".join(enc.encode_band(band)) + b"".join(enc.finish())
+
+    for tensor in (False, True):
+        assert encoded(packed, tensor) == encoded(rgba, tensor)
 
 
 # --------------------------------------------------------------------------- #
