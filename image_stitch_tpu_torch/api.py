@@ -8,7 +8,9 @@ camelCase keys) plus a keyword ``device``: "cuda" (the default) runs the
 band work (JPEG or PNG encode, positioned compositing) on the GPU and
 raises when CUDA is absent; "cpu" runs the plain torch versions of the
 kernels. The option ``backend="numpy"`` (or "oracle") runs the host tier
-instead and leaves ``device`` unread. ``counters``, when given, receives
+instead and leaves ``device`` unread; ``backend="auto"`` lets the JAX
+package's policy choose from the canvas's size and the link to ``device``
+(ops/backend.py). ``counters``, when given, receives
 what the device did (JPEG bands, re-packs and host-coded bands; PNG bands;
 composited and replayed positioned bands) and the bands the host tier
 encoded.

@@ -621,15 +621,13 @@ class StreamingJpegEncoder:
             self._pending = None
         n_full = band.shape[0] // self._mcu_h
         if n_full:
-            full = band if isinstance(band, ShardedBand) else band[: n_full * self._mcu_h]
+            full = band[: n_full * self._mcu_h]
             data = self._fused_native_band(full)
             if data is not None:
                 yield data
             else:
                 yb, cbb, crb = self._quantize_band(full)
                 yield from self._emit_blocks(yb, cbb, crb)
-        if isinstance(band, ShardedBand):
-            return
         rest = band[n_full * self._mcu_h :]
         if rest.shape[0]:
             self._pending = rest.copy()
@@ -665,16 +663,18 @@ class StreamingJpegEncoder:
 class JpegEncoder:
     """Reference-compatible wrapper class (src/jpeg-encoder.ts:96-245), the
     counterpart of the JAX package's ``JpegEncoder``: one carried stream, no
-    restart markers. ``backend`` "torch" (the default) or "auto" runs
+    restart markers. ``backend`` "torch" (the default), "jax" or "tpu" runs
     ``TorchStreamingJpegEncoder`` on ``device``: "cuda" (raises without a
     card) or "cpu" (the kernels' plain versions). "numpy" or "oracle" runs
     the host tier's ``StreamingJpegEncoder`` and leaves ``device`` unread.
-    Any other name raises."""
+    "auto" takes the auto policy's answer for ``width * height`` pixels
+    (``ops.backend.resolve_backend_name``), where the JAX package's
+    encoder codes "auto" on the host. Any other name raises."""
 
     def __init__(self, width: int, height: int, quality: int = 85,
                  backend: str = "torch", sampling: str = "444", *,
                  device="cuda", counters: EncodeCounters | None = None):
-        if resolve_backend_name(backend) == "numpy":
+        if resolve_backend_name(backend, width * height, device) == "numpy":
             self._inner = StreamingJpegEncoder(
                 width, height, quality, sampling, counters=counters)
         else:

@@ -14,7 +14,11 @@ math per band there) and handed to the encoder without leaving it.
 no device is resolved and no tensor made; bands composite on the host
 (``ops.pixel.composite_band``), JPEG tiles decode on the host, and the
 bands go to the host ``StreamingJpegEncoder`` or ``ops.backend.
-NumpyBackend``. "auto" means "torch" until the auto policy is ported.
+NumpyBackend``. "torch" (the default), "jax" and "tpu" run on ``device``.
+"auto" is the JAX package's policy (``ops.backend.resolve_backend_name``),
+resolved once a call from the canvas's pixels, as soon as the output
+header is known; every later site reads that one answer, and the device is
+resolved only if it is "torch".
 
 ``mesh`` (an int or a ``parallel.mesh.Mesh``) sends the band programs to
 the mesh whatever ``backend`` says, as in the JAX package: the PNG filter,
@@ -365,9 +369,10 @@ class TorchStreamingConcatenator:
     on the host tier under ``backend="numpy"`` (reference:
     CoreStreamingConcatenator, image-concat-core.ts:279).
 
-    A ``backend`` other than "auto", "torch", "numpy" or "oracle" raises,
-    since it names another package's path. The host tier leaves ``device``
-    unread (``self.device`` is None). ``mesh``: an int makes
+    A ``backend`` other than "auto", "torch", "jax", "tpu", "numpy" or
+    "oracle" raises. The host tier leaves ``device`` unread (``self.device``
+    is None); "auto" leaves it unread until a call resolves the policy to
+    "torch" (``_resolve_backend``). ``mesh``: an int makes
     ``make_mesh(n, device=...)`` (virtual shards on the CPU); a ``Mesh``
     must be of ``device``'s kind. Either takes the band programs whatever
     ``backend`` says, and ``self.device`` is the mesh's first device."""
@@ -375,7 +380,9 @@ class TorchStreamingConcatenator:
     def __init__(self, options: ConcatOptions | Mapping[str, Any], device="cuda",
                  counters: EncodeCounters | None = None):
         self.options = ConcatOptions.from_any(options)
-        self.backend = resolve_backend_name(self.options.backend)
+        # "auto" waits for the canvas's size; any other name resolves now.
+        name = self.options.backend
+        self.backend = name if name == "auto" else resolve_backend_name(name)
         self.options.validate()
         from .utils.observability import PipelineStats
 
@@ -384,12 +391,24 @@ class TorchStreamingConcatenator:
         # absent in the reference.
         self.stats = PipelineStats()
         self._pool = None  # host_threads decode workers (lazy)
+        self._device_arg = device
         self.mesh = self._resolved_mesh(device)
         if self.mesh is not None:
             self.device = self.mesh.flat()[0]
         else:
             self.device = resolve_device(device) if self.backend == "torch" else None
         self.counters = counters if counters is not None else EncodeCounters()
+
+    def _resolve_backend(self, out_header: PngHeader) -> None:
+        """Resolve ``backend="auto"`` for this call from the output's pixels
+        (the JAX package resolves it with the same count at each site), and
+        the device only where the answer is "torch". A mesh takes the band
+        programs whatever ``backend`` says, so it is not asked."""
+        if self.options.backend != "auto" or self.mesh is not None:
+            return
+        self.backend = resolve_backend_name(
+            "auto", out_header.width * out_header.height, self._device_arg)
+        self.device = resolve_device(self._device_arg) if self.backend == "torch" else None
 
     def _resolved_mesh(self, device) -> Mesh | None:
         """``options.mesh`` (Mesh | int | None) as a Mesh on ``device``'s
@@ -564,6 +583,7 @@ class TorchStreamingConcatenator:
             bit_depth=final_depth,
             color_type=6,
         )
+        self._resolve_backend(out_header)
 
         progress = (
             ProgressTracker(headers, opts.on_progress) if opts.on_progress else None
@@ -857,6 +877,7 @@ class TorchStreamingConcatenator:
         out_header = PngHeader(
             width=canvas_w, height=canvas_h, bit_depth=final_depth, color_type=6
         )
+        self._resolve_backend(out_header)
 
         progress = (
             ProgressTracker(headers, opts.on_progress) if opts.on_progress else None

@@ -47,7 +47,7 @@ from ..codecs.jpeg.tables import ZIGZAG, huffman_lut
 from ..parallel.mesh import Mesh, ShardedBand, band_rows, row_slabs
 from .counters import EncodeCounters
 from .device import jpeg_quantize, jpeg_quantize_420
-from .kernels import group_layout, pack_merge, symbol_streams
+from .kernels import group_layout, pack_merge, stream_fits_int32, symbol_streams
 
 # Packed-output budget in bits per pixel before the first band reports,
 # and its ceiling (the JAX package's values).
@@ -293,8 +293,12 @@ def pack_groups_from_blocks(yb, cbb, crb, luts: dict, n_groups: int, cap_words: 
     Returns (dense (n_groups * cap_words,) int32, group_bits (n_groups,)
     int32, max_block_bits () int32, max_overlap () int32). The merge has no
     per-word overlap bound, so ``max_overlap`` is always 0, a host
-    constant."""
+    constant. Where the start bits could pass 2^31 (``kernels.
+    stream_fits_int32``), neither the layout nor the pack runs and all four
+    are None: the caller codes the band on the host."""
     codes, lens, block_bits, _dc = symbol_streams(yb, cbb, crb, luts, n_groups, sampling)
+    if not stream_fits_int32(block_bits.shape[0], local_words):
+        return None, None, None, None
     starts, group_bits, max_bits, _, _ = group_layout(block_bits, n_groups)
     dense = pack_merge(codes, lens, starts, local_words, n_groups * cap_words)
     return dense, group_bits, max_bits, torch.zeros((), dtype=torch.int32)
@@ -305,9 +309,16 @@ def _pack_carried(yb, cbb, crb, luts: dict, prev_dc: torch.Tensor, bit_base: tor
     """``entropy_pack_carried`` and the next band's ``bit_base``
     (total_bits % 8), which the layout gives with the rest. On the card:
     symbol_streams, group_layout, the memset of the words and pack_merge, and
-    nothing between them."""
+    nothing between them. Where the start bits could pass 2^31 (``kernels.
+    stream_fits_int32``), neither the layout nor the pack runs: ``words``
+    and ``max_bits`` are None, and the total and the next base come from
+    the bit counts' int64 sum, so the chain stays exact while the caller
+    codes the band on the host."""
     codes, lens, block_bits, new_dc = symbol_streams(yb, cbb, crb, luts, 1, sampling,
                                                      prev_dc=prev_dc)
+    if not stream_fits_int32(block_bits.shape[0], local_words):
+        total_bits = bit_base.to(torch.int64) + block_bits.sum(dtype=torch.int64)
+        return None, total_bits, new_dc, None, total_bits % 8
     starts, _group_bits, max_bits, total_bits, next_base = group_layout(
         block_bits, 1, bit_base.to(torch.int64))
     words = pack_merge(codes, lens, starts, local_words, cap_words)
@@ -323,7 +334,9 @@ def entropy_pack_carried(yb, cbb, crb, luts: dict, prev_dc: torch.Tensor,
 
     Returns (words (cap_words,) int32, total_bits () int64 including
     bit_base, new_dc (3,) int32, max_block_bits () int32). The words equal
-    the JAX package's ``entropy_pack_trace_v2`` up to ceil(total_bits/32)."""
+    the JAX package's ``entropy_pack_trace_v2`` up to ceil(total_bits/32).
+    ``words`` and ``max_block_bits`` are None where the start bits could
+    pass 2^31."""
     return _pack_carried(yb, cbb, crb, luts, prev_dc, bit_base, cap_words, local_words,
                          sampling)[:4]
 
@@ -558,7 +571,8 @@ class TorchJpegEncoder:
         """Pack an overflowed band again from its device-resident blocks,
         with a per-block budget that holds ``max_bb`` and the pooled
         capacity its exact group bit counts need. Returns (dense,
-        cap_words), or None when no budget holds the blocks."""
+        cap_words), or None when no budget holds the blocks or their start
+        bits could pass 2^31 at the budget that does."""
         local_words = self._local_words
         if max_bb > local_words * 32:
             for cand in (12, 16, LOCAL_WORDS):
@@ -569,6 +583,8 @@ class TorchJpegEncoder:
                 return None
             # Later bands keep the larger budget: content proved it needed.
             self._local_words = local_words
+        if not stream_fits_int32(sum(b.shape[0] for b in blocks), local_words):
+            return None
         used = (bits_h + 31) // 32
         need_per_group = -(-int(used.sum()) // n_groups)
         cap_words = max(64, -(-need_per_group // 256) * 256)
@@ -583,6 +599,11 @@ class TorchJpegEncoder:
         out = bytearray()
         for (dense, bits, max_bb, blocks, n_groups, cap_words, px_per_group,
              packed_lw, shard) in handles:
+            if dense is None:
+                # The dispatch's start bits could pass 2^31: no pack ran.
+                self.counters.host_fallback_bands += 1
+                out += self._host_fallback_groups(blocks, n_groups)
+                continue
             bits_h = bits.cpu().numpy().astype(np.int64)
             max_bb = int(max_bb)
             used = (bits_h + 31) // 32
@@ -660,6 +681,10 @@ class TorchJpegEncoder:
             return self._wait_groups(handle[1])
         _, words, total_bits, cap_words, max_bb, blocks, prev_dc_in, packed_lw = handle
         total_bits = int(total_bits)
+        if words is None:
+            # The band's start bits could pass 2^31: no pack ran.
+            self.counters.host_fallback_bands += 1
+            return self._host_fallback_blocks(blocks, prev_dc_in)
         if int(max_bb) > packed_lw * 32 or total_bits > cap_words * 32:
             # Overflow: code this band on the host from its (exact) blocks.
             # The device carry chain stays valid: total_bits and new_dc are

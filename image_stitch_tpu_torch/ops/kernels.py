@@ -57,6 +57,20 @@ from .jpeg_idct_device import decode_plane, window_to_rgba
 MASK32 = 0xFFFFFFFF
 # Largest words-per-block the kernel takes (csrc/pack_merge.cuh PACK_MAX_AW).
 MAX_AW = 32
+# group_layout and pack_merge hold a block's start bit as int32
+# (csrc/layout.cu, csrc/pack_merge.cu): a dispatch's stream stays below this.
+MAX_STREAM_BITS = 1 << 31
+
+
+def stream_fits_int32(n_blocks: int, local_words: int) -> bool:
+    """Whether every start bit of a dispatch of ``n_blocks`` blocks, each
+    packed in at most ``local_words`` words, stays below 2^31. The bound is
+    ``n_blocks * (local_words + 1) * 32`` bits: a block within its budget
+    holds at most ``local_words`` words, and the layout adds less than one
+    word a block (a restart group's padding to whole words, the carried
+    stream's leading bits). A dispatch with a block over budget is packed
+    again or coded on the host, whatever its start bits were."""
+    return n_blocks * (local_words + 1) * 32 < MAX_STREAM_BITS
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -158,10 +172,13 @@ def pack_merge(codes: torch.Tensor, lens: torch.Tensor, starts: torch.Tensor,
                local_words: int, n_words: int) -> torch.Tensor:
     """Pack each block's (nb, n_sym) int32 symbol slots at its (nb,) int32
     global start bit and merge the words into a zeroed (n_words,) int32
-    stream; indices past n_words are dropped. Launches csrc/pack_merge.cu
+    stream; indices past n_words are dropped. Raises where the start bits
+    could pass 2^31 (``stream_fits_int32``). Launches csrc/pack_merge.cu
     for CUDA tensors; the plain version for CPU tensors."""
     nb, n_sym = codes.shape
     device = codes.device
+    if not stream_fits_int32(nb, local_words):
+        raise ValueError(f"{nb} blocks of {local_words} words may pass 2^31 start bits")
     _check(codes, "codes", torch.int32, 2, device)
     _check(lens, "lens", torch.int32, 2, device)
     _check(starts, "starts", torch.int32, 1, device)

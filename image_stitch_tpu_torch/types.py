@@ -173,11 +173,13 @@ class ConcatOptions:
     # zlib strategy for PNG output: 'default' | 'filtered' | 'rle'
     # ('filtered'/'rle' can be much faster on filtered scanline data).
     png_compression_strategy: str = "default"
-    # 'auto' (device compute for large canvases, host numpy below the
-    # dispatch-overhead threshold), 'tpu'/'jax' (force device), or
-    # 'numpy'/'oracle' (host float64 path matching the reference's JS
-    # semantics bit-for-bit).
-    backend: str = "auto"
+    # The port runs on ``device``: 'torch' (the default; 'jax' and 'tpu'
+    # too) unless the caller asks for the host tier with 'numpy'/'oracle'
+    # (host float64 path matching the reference's JS semantics
+    # bit-for-bit) or for the JAX package's policy with 'auto' (the host
+    # tier for small canvases, the device above a threshold and over a fast
+    # link; ops/backend.py). Every name gives the same bytes.
+    backend: str = "torch"
     # Multi-chip scale-out: a jax.sharding.Mesh with axes ('band', 'x') or an
     # int device count (first N jax devices, factored near-square). Implies
     # the device backend for band programs; output bytes are identical to

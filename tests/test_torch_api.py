@@ -235,10 +235,22 @@ def test_streaming_encoder_takes_strip_bytes():
 
 @pytest.mark.parametrize("backend", ["tpu", "jax", "native"])
 def test_jpeg_encoder_refuses_other_backends(backend):
+    """"tpu" and "jax" force the device, as in the JAX package, and give
+    its bytes; "native" raises."""
+    rgba = rgba_image(16, 16)
+    if backend in ("tpu", "jax"):
+        counters = port.EncodeCounters()
+        enc = port.JpegEncoder(16, 16, 85, backend, device="cpu", counters=counters)
+        want = image_stitch_tpu.encode_jpeg(rgba, 16, 16, 85, "numpy")
+        assert isinstance(enc._inner, port.TorchStreamingJpegEncoder)
+        assert enc.encode_to_buffer(rgba.tobytes()) == want
+        assert port.encode_jpeg(rgba, 16, 16, 85, backend, device="cpu") == want
+        assert counters.bands > 0 and counters.host_tier_bands == 0
+        return
     with pytest.raises(port.StitchError, match="not a path of image_stitch_tpu_torch"):
         port.JpegEncoder(16, 16, 85, backend, device="cpu")
     with pytest.raises(port.StitchError, match="not a path of image_stitch_tpu_torch"):
-        port.encode_jpeg(rgba_image(16, 16), 16, 16, 85, backend, device="cpu")
+        port.encode_jpeg(rgba, 16, 16, 85, backend, device="cpu")
 
 
 def test_jpeg_encoder_validates_as_the_jax_package():

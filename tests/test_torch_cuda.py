@@ -742,3 +742,37 @@ def test_mesh_refusals_on_the_card(cuda):
     # An int mesh on the card counts the cards, never CPU shards.
     mesh = image_stitch_tpu_torch.TorchStreamingConcatenator({**opts, "mesh": 1}, device=cuda).mesh
     assert mesh.flat() == [cuda]
+
+
+@pytest.fixture
+def fresh_policy(monkeypatch, tmp_path):
+    """The auto policy's session cache emptied and its persistent cache in
+    ``tmp_path``; no policy variable set."""
+    from image_stitch_tpu_torch.ops import backend as B
+
+    monkeypatch.setattr(B, "_LINK_PROFILES", {})
+    for var in ("STITCH_TPU_PREFER_DEVICE", "STITCH_TPU_LINK_PROFILE",
+                "STITCH_TPU_PROBE_BUDGET_S"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
+    return B
+
+
+def test_link_probe_measures_the_card(cuda, fresh_policy):
+    """The budgeted probe (a child process) on the card: a CUDA platform,
+    more than 1,000 MB/s up and down, under 1 ms of latency, persisted."""
+    prof = fresh_policy.probe_link_profile(cuda)
+    assert prof is not None and not prof.timed_out
+    assert prof.platform.startswith("cuda") and torch.cuda.get_device_name(cuda) in prof.platform
+    assert prof.h2d_mbps > 1000 and prof.d2h_mbps > 1000 and prof.latency_ms < 1.0
+    assert fresh_policy.get_link_profile(cuda).platform == prof.platform
+
+
+def test_auto_over_the_threshold_picks_the_card(cuda, fresh_policy):
+    """"auto" at the threshold resolves to "torch" on the card's measured
+    link, and under it to the host tier."""
+    t = fresh_policy.AUTO_DEVICE_THRESHOLD_PIXELS
+    assert fresh_policy.resolve_backend_name("auto", t, cuda) == "torch"
+    assert fresh_policy.resolve_backend_name("auto", t - 1, cuda) == "numpy"
+    prof = fresh_policy.get_link_profile(cuda)
+    assert fresh_policy.decide_auto_backend(t, True, prof) == "torch"

@@ -4,7 +4,8 @@
 ``image_stitch_tpu.ops.jpeg_entropy_device.DeviceJpegEncoder`` (JAX on the
 CPU) encode the same seeded bands; their entropy-coded bytes must be equal,
 including the overflow paths: a per-block budget that a re-pack fixes, a
-budget nothing fixes (host coding), and too little pooled capacity. The
+budget nothing fixes (host coding), too little pooled capacity, and a
+dispatch whose start bits could pass 2^31 (host coding). The
 port's counters say which path each band took.
 """
 
@@ -15,6 +16,8 @@ import torch
 from image_stitch_tpu.codecs.jpeg.tables import quality_scaled_tables
 from image_stitch_tpu.ops.jpeg_entropy_device import DeviceJpegEncoder
 from image_stitch_tpu_torch.codecs.jpeg.encoder import local_words_for_quality
+from image_stitch_tpu_torch.ops import jpeg_entropy_device as E
+from image_stitch_tpu_torch.ops import kernels as K
 from image_stitch_tpu_torch.ops.jpeg_entropy_device import EncodeCounters, TorchJpegEncoder
 from tests.utils.torch_port import TABLES
 
@@ -160,3 +163,70 @@ def test_submit_rejects_device_arrays():
         enc.submit(torch.zeros((8, 8, 2), dtype=torch.uint8))
     with pytest.raises(TypeError):
         enc.submit(torch.zeros((8, 8, 4), dtype=torch.int32))
+
+
+# --------------------------------------------------------------------------- #
+# A dispatch whose start bits could pass 2^31
+# --------------------------------------------------------------------------- #
+
+
+def long_stream(monkeypatch, local_words: int) -> int:
+    """Make the port's symbol stage report the bit counts of a dispatch of
+    ceil(2^31 / (32 * local_words)) blocks, each at its full budget of
+    ``local_words`` words, so that they sum past 2^31; the codes and lengths
+    are zero-stride views. The layout (kernel and plain version) and the
+    pack must not run. Returns the block count."""
+    nb = -(-K.MAX_STREAM_BITS // (32 * local_words))
+
+    def symbols(yb, cbb, crb, luts, n_groups=1, sampling="444", prev_dc=None):
+        slots = torch.zeros((1, K.SYMBOL_SLOTS), dtype=torch.int32).expand(nb, -1)
+        bits = torch.full((nb,), 32 * local_words, dtype=torch.int32)
+        return slots, slots, bits, torch.zeros(3, dtype=torch.int32)
+
+    def must_not_run(*args, **kwargs):
+        raise AssertionError("a layout or a pack ran on a stream past 2^31 bits")
+
+    monkeypatch.setattr(E, "symbol_streams", symbols)
+    for mod, name in ((E, "group_layout"), (E, "group_layout_plain"), (E, "pack_merge"),
+                      (K, "group_layout"), (K, "pack_merge_plain")):
+        monkeypatch.setattr(mod, name, must_not_run)
+    return nb
+
+
+def test_stream_bound_at_2_31_bits():
+    """The bound is blocks x (budget + 1) words x 32 bits: the largest
+    dispatch fits, one block more does not, and pack_merge refuses it
+    before any check of its tensors, so nothing launches."""
+    lw = 24
+    nb = (K.MAX_STREAM_BITS - 1) // (32 * (lw + 1))
+    assert K.stream_fits_int32(nb, lw) and not K.stream_fits_int32(nb + 1, lw)
+    slots = torch.zeros((1, K.SYMBOL_SLOTS), dtype=torch.int32).expand(nb + 1, -1)
+    with pytest.raises(ValueError, match="2\\^31"):
+        K.pack_merge(slots, slots, torch.zeros(1, dtype=torch.int32), lw, 64)
+
+
+def test_pack_functions_refuse_streams_past_2_31_bits(monkeypatch):
+    """Given bit counts summing past 2^31, the restart-group pack returns
+    no words, and the carried pack no words but the exact int64 total and
+    the next band's base, computed from the bit counts alone."""
+    lw = 24
+    nb = long_stream(monkeypatch, lw)
+    blocks = [torch.zeros((1, 64), dtype=torch.int16)] * 3
+    assert E.pack_groups_from_blocks(*blocks, {}, 1, 64, local_words=lw) == (None,) * 4
+    base = torch.tensor(5, dtype=torch.int64)
+    words, total, new_dc, max_bb = E.entropy_pack_carried(
+        *blocks, {}, torch.zeros(3, dtype=torch.int32), base, 64, local_words=lw)
+    assert words is None and max_bb is None
+    assert int(total) == 5 + nb * 32 * lw >= K.MAX_STREAM_BITS
+
+
+@pytest.mark.parametrize("ri", [0, 1])
+def test_stream_past_2_31_bits_codes_on_host(monkeypatch, ri):
+    """A band whose dispatch could pass 2^31 start bits is coded on the host
+    from its exact blocks: the JAX encoder's bytes, no layout, no pack."""
+    rng = np.random.default_rng(8)
+    bands = [photo_band(rng, 16, 48)]
+    long_stream(monkeypatch, local_words_for_quality(85))
+    ref, got, c = encode_both(bands, ri=ri)
+    assert got == ref
+    assert (c.bands, c.repacks, c.host_fallback_bands) == (1, 0, 1)

@@ -32,6 +32,7 @@ from image_stitch_tpu_torch.codecs.jpeg.encoder import StreamingJpegEncoder
 from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
 from image_stitch_tpu_torch.core import TorchStreamingConcatenator
 from image_stitch_tpu_torch.native import jpeg_quant_band_420_native, native_available
+from image_stitch_tpu_torch.ops import backend as B
 from image_stitch_tpu_torch.ops import kernels as K
 from image_stitch_tpu_torch.ops.backend import (
     NumpyBackend,
@@ -300,14 +301,32 @@ def test_jpeg_encoder_strips_match_jax():
 
 @pytest.mark.parametrize("name,want", [("numpy", "numpy"), ("oracle", "numpy"),
                                        ("torch", "torch"), ("auto", "torch")])
-def test_resolve_backend_name(name, want):
-    assert resolve_backend_name(name) == resolve_backend_name(name, 1 << 30) == want
-    backend = get_backend(name, "cpu")
-    assert isinstance(backend, NumpyBackend if want == "numpy" else TorchBackend)
+def test_resolve_backend_name(name, want, monkeypatch):
+    """Each name at the auto threshold's size; "auto" is the policy: the
+    host tier under the threshold or at an unknown size, over it the cost
+    model, which picks the device over the CPU's instant link (or wherever
+    the C++ host library is missing)."""
+    monkeypatch.delenv("STITCH_TPU_PREFER_DEVICE", raising=False)
+    monkeypatch.delenv("STITCH_TPU_LINK_PROFILE", raising=False)
+    monkeypatch.setattr(B, "_LINK_PROFILES", {})
+    big = B.AUTO_DEVICE_THRESHOLD_PIXELS
+    small = "numpy" if name == "auto" else want
+    assert resolve_backend_name(name, big, "cpu") == want
+    assert resolve_backend_name(name) == resolve_backend_name(name, big - 1, "cpu") == small
+    for px, key in ((big, want), (big - 1, small)):
+        backend = get_backend(name, "cpu", canvas_pixels=px)
+        assert isinstance(backend, NumpyBackend if key == "numpy" else TorchBackend)
 
 
 @pytest.mark.parametrize("name", ["jax", "tpu", "native", ""])
 def test_other_backend_names_raise(name):
+    """The JAX package's device names force the device as "torch" does, at
+    any size (its types.py: "force device"); "native" and "" raise."""
+    if name in ("jax", "tpu"):
+        assert resolve_backend_name(name) == resolve_backend_name(name, 1) == "torch"
+        core = TorchStreamingConcatenator({**grid(), "backend": name}, device="cpu")
+        assert core.backend == "torch" and core.device == torch.device("cpu")
+        return
     with pytest.raises(port.StitchError, match="not a path of image_stitch_tpu_torch"):
         resolve_backend_name(name)
     with pytest.raises(port.StitchError, match="not a path of image_stitch_tpu_torch"):

@@ -12,6 +12,8 @@ virtual CPU shards, then the command line (``main`` of
 ``image_stitch_tpu_torch/__main__.py``) over tile files with ``--device
 cpu``, also with ``--mesh 2``; afterwards no module of ``image_stitch_tpu``
 and no ``jax`` is loaded.
+(c) The code that the link probe runs in its child process imports only
+the port's module, and loads neither package when it runs.
 """
 
 import ast
@@ -160,3 +162,27 @@ def test_running_the_port_loads_nothing_of_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_probe_child_imports_only_the_port():
+    """The link probe's child code (``ops/backend.py`` ``_PROBE_CHILD``)
+    imports the port's own module, never the JAX package's; run for the CPU
+    in a fresh process with the probe's PYTHONPATH, it prints the instant
+    profile and loads nothing of the JAX package or jax."""
+    from image_stitch_tpu_torch.ops.backend import _PROBE_CHILD
+
+    code = _PROBE_CHILD.format(device="cpu")
+    tree = ast.parse(code)
+    imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    imported += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert imported == ["json", f"{PORT}.ops.backend"]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    tail = ("import sys\nprint(sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('image_stitch_tpu', 'jax')))\n")
+    proc = subprocess.run([sys.executable, "-c", code + tail], cwd="/", env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    profile, foreign = proc.stdout.strip().splitlines()[-2:]
+    assert profile == '[1000000.0, 0.0, 1000000.0, "cpu"]'
+    assert foreign == "[]"

@@ -324,10 +324,17 @@ def test_positioned_stream_bands_are_host_arrays(fmt):
 
 @pytest.mark.parametrize("bad", [{"mesh": 64}, {"backend": "jax"}, {"backend": "tpu"}])
 def test_other_paths_raise(bad):
-    """A mesh of more shards than the CPU mesh has, and the JAX package's
-    device backends, raise."""
+    """A mesh of more shards than the CPU mesh has raises; the JAX
+    package's device backends run the torch path, with its bytes."""
+    opts = grid_options(64, 48, 0)
+    if "backend" in bad:
+        counters = image_stitch_tpu_torch.EncodeCounters()
+        want = image_stitch_tpu.concat_to_buffer({**opts, "backend": "numpy"})
+        assert port({**opts, **bad}, counters=counters) == port(opts) == want
+        assert counters.bands > 0 and counters.host_tier_bands == 0
+        return
     with pytest.raises(StitchError):
-        port({**grid_options(64, 48, 0), **bad})
+        port({**opts, **bad})
 
 
 def test_cuda_without_cuda_raises(monkeypatch):
