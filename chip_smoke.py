@@ -102,10 +102,18 @@ path. Phases, each printing its lines before the last:
      (its bytes reused); filter select must launch once per non-empty row
      slab, the encoder's kernels once per restart-group dispatch on a
      shard, compositing once per slab of a band;
-     ``make_mesh(device_count() + 1)`` must raise; ``shard_grid_dual_step``
-     over the virtual mesh and ``fused_grid_dual_step`` on the card over
-     one 256-row band of the grid must equal the plain versions on the CPU
-     (the one-card step timed); the card's peak memory over the 67 MP
+     ``make_mesh(device_count() + 1)`` must raise; the fused step
+     (``kernels.grid_dual``, csrc/grid_dual.cu, one launch a step or a
+     slab): ``fused_grid_dual_step`` at ``entry()``'s shape, at 40 B tile
+     rows and off a 4 B boundary (every variant of ``GRID_DUAL_VARIANTS``)
+     and over one 256-row band of the grid, and ``shard_grid_dual_step`` over
+     the virtual mesh on that band, must equal the plain step on the CPU and
+     the composition it replaced (the canvas assembled, filter_select,
+     fdct_quant) on the card, the sharded step with one grid_dual launch per
+     non-empty slab and no filter_select or fdct_quant launch; grid_dual is
+     timed in turns with that composition (device time and events, one card;
+     events over the virtual mesh, against the sharded composition) and
+     beside its bytes bound; the card's peak memory over the 67 MP
      virtual-mesh JPEG run may exceed the same run on the grid's top half by
      two bands' bytes at most; the 67 MP JPEG run timed in turns on one
      card and over the virtual mesh (card, mesh, mesh, card), and one
@@ -957,7 +965,7 @@ def same_as_host(out: bytes, opts: dict, dev: torch.device, what: str) -> None:
 
 
 COUNTED = ("pack_merge", "filter_select", "composite_segments", "idct_dequant", "ycc_rgba",
-           "fdct_quant", "symbol_streams", "group_layout")
+           "fdct_quant", "symbol_streams", "group_layout", "grid_dual")
 # What the run under way did outside the kernels' counts, recorded by
 # tracing(): decode_band calls (a band of one tile, read back to the host:
 # the mixed bands), uploads of a staged band, whole tiles decoded on the
@@ -1674,48 +1682,170 @@ def mesh_run(name: str, opts: dict, mesh, mp: float, dev: torch.device, ref: byt
     return launches, mp / secs
 
 
+# Band heights at which grid_dual is timed alone: 16, 32, 33, 34 and 64
+# strips of 8 rows.
+WAVE_ROWS = (128, 256, 264, 272, 512)
+
+
+def sharded_composition(mesh):
+    """The sharded dual step that ``grid_dual`` replaced, kept here as a
+    yardstick only: the whole canvas assembled on the first device, then
+    per non-empty slab of whole 8-row strips a copy of its rows,
+    filter_select after its halo row and fdct_quant, on the slab's shard."""
+    from image_stitch_tpu_torch.ops.fused import assemble_uniform_grid
+    from image_stitch_tpu_torch.ops.kernels import fdct_quant, filter_select
+    from image_stitch_tpu_torch.parallel.mesh import band_rows, row_slabs
+
+    def step(tiles, prev_row, lq, cq):
+        canvas = assemble_uniform_grid(tiles)
+        h = canvas.shape[0]
+        outs = []
+        for i, (r0, r1) in enumerate(row_slabs(h, mesh.size, 8)):
+            if r1 == r0:
+                continue
+            with mesh.shard(i) as dev:
+                slab = band_rows(canvas, r0, r1, dev)
+                prev = prev_row if r0 == 0 else canvas[r0 - 1].reshape(-1)
+                types, filtered = filter_select(slab.reshape(r1 - r0, -1), prev.to(dev), 4)
+                outs.append([types.to(torch.int32), filtered,
+                             *fdct_quant(slab, lq.to(dev), cq.to(dev), "444")])
+        out = [torch.cat([o[k] for o in outs]) for k in range(5)]
+        return (*out[:2], canvas[-1].reshape(-1), *out[2:])
+
+    return step
+
+
+def in_turns(kernel, yardstick, what: str) -> dict:
+    """Device time (torch.profiler) and CUDA events of ``kernel`` and
+    ``yardstick``, in turns (yardstick, kernel, kernel, yardstick): per
+    side, the median of its turns' medians, the least min and the greatest
+    max."""
+    runs: dict = {"kernel": ([], []), "yardstick": ([], [])}
+    for which in ("yardstick", "kernel", "kernel", "yardstick"):
+        fn = kernel if which == "kernel" else yardstick
+        runs[which][0].append(device_time(fn, what=f"{what}, {which}"))
+        runs[which][1].append(time_cuda(fn, reps=50))
+
+    def merged(ts: list[dict]) -> dict:
+        out = {"median": statistics.median(t["median"] for t in ts),
+               "min": min(t["min"] for t in ts), "max": max(t["max"] for t in ts),
+               "reps": sum(t["reps"] for t in ts)}
+        if "source" in ts[0]:
+            out["source"] = "+".join(sorted({t["source"] for t in ts}))
+        return out
+
+    return {f"{which}_{kind}": merged(runs[which][i]) for which in runs
+            for i, kind in enumerate(("device", "events"))}
+
+
 def fused_step_check(tiles: list[np.ndarray], mesh, dev: torch.device) -> dict:
-    """``shard_grid_dual_step`` over ``mesh`` and ``fused_grid_dual_step`` on
-    one card over one 256-row band of the grid (its first tile row's top
-    rows): both must equal the plain versions on the CPU, the sharded step
-    launching filter select and fdct_quant once per non-empty slab. Times
-    the one-card step (device time and events; the plain step on the CPU by
-    the host clock) and the sharded one (events). Returns the timings, the
-    launches and the bytes bound's bytes."""
+    """The fused step (``kernels.grid_dual``, csrc/grid_dual.cu) at
+    ``entry()``'s shape (2, 4, 64, 64) of ``testing.grid_tiles``, at 40 B
+    tile rows (4 B copies) and on a tile stack off a 4 B boundary (the
+    composition), and over one 256 x 8192 band of the grid (its first tile
+    row's top rows, (1, 8, 256, 1024)): ``fused_grid_dual_step`` on the card
+    must equal the plain step on the CPU and the composition it replaces on
+    the card (``fused_grid_dual_step_plain``: the canvas assembled,
+    filter_select, fdct_quant); every variant of ``GRID_DUAL_VARIANTS`` must
+    run. On the band, with every count set to 0 just before and read just
+    after: ``shard_grid_dual_step`` over ``mesh`` must equal them with one
+    grid_dual launch per non-empty slab and no filter_select or fdct_quant
+    launch, and the one-card step one grid_dual launch. Times grid_dual
+    against the composition in turns (device time and events), the plain
+    step on the card (events), and over the mesh the step against the
+    sharded composition it replaced (events, in turns). Returns the
+    timings, the launches, the bytes bound's bytes and max |kernel - plain|."""
     from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
     from image_stitch_tpu_torch.ops import kernels as K
-    from image_stitch_tpu_torch.ops.fused import fused_grid_dual_step
+    from image_stitch_tpu_torch.ops.fused import fused_grid_dual_step, fused_grid_dual_step_plain
     from image_stitch_tpu_torch.parallel.mesh import shard_grid_dual_step
+    from image_stitch_tpu_torch.testing import grid_tiles
 
+    lq, cq = (torch.from_numpy(q) for q in quality_scaled_tables(QUALITY))
+    err = 0
+    variants = set()
+    cases = [("entry (2, 4, 64, 64)", torch.from_numpy(grid_tiles((2, 4, 64, 64), SEED)), 0),
+             ("40 B tile rows (2, 4, 16, 10)", torch.from_numpy(grid_tiles((2, 4, 16, 10), SEED)),
+              0),
+             ("entry, 1 B off a word", torch.from_numpy(grid_tiles((2, 4, 64, 64), SEED + 1)), 1)]
+    for what, band, offset in cases:
+        prev = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, 256, band.shape[1] * band.shape[3] * 4, dtype=np.uint8))
+        store = torch.zeros(band.numel() + 16, dtype=torch.uint8, device=dev)
+        on_card = store[offset:offset + band.numel()].view(band.shape)
+        on_card.copy_(band.to(dev))
+        variants.add(K.GRID_DUAL_VARIANTS[K.grid_dual_variant(band.shape[3],
+                                                               on_card.data_ptr())])
+        args = [on_card] + [t.to(dev) for t in (prev, lq, cq)]
+        plain = fused_grid_dual_step(band, prev, lq, cq)
+        got, composed = fused_grid_dual_step(*args), fused_grid_dual_step_plain(*args)
+        torch.cuda.synchronize()
+        for i, (g, c, p) in enumerate(zip(got, composed, plain)):
+            err = max(err, max_err(g.cpu(), p))
+            if not (torch.equal(g.cpu(), p) and torch.equal(c.cpu(), p)):
+                fail(f"fused dual step at {what}: output {i} differs between grid_dual, the "
+                     f"composition and the plain step on the CPU")
     band = torch.from_numpy(np.stack([t[:BAND_ROWS] for t in tiles[:GRID]])[None])
     prev = torch.zeros(GRID * TILE * 4, dtype=torch.uint8)
-    lq, cq = (torch.from_numpy(q) for q in quality_scaled_tables(QUALITY))
     t0 = time.perf_counter()
     plain = fused_grid_dual_step(band, prev, lq, cq)
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_cpu_ms = (time.perf_counter() - t0) * 1e3
     args = [t.to(dev) for t in (band, prev, lq, cq)]
+    variants.add(K.GRID_DUAL_VARIANTS[K.grid_dual_variant(TILE, args[0].data_ptr())])
+    if variants != set(K.GRID_DUAL_VARIANTS):
+        fail(f"grid_dual variants run: {sorted(variants)}, expected {K.GRID_DUAL_VARIANTS}")
     step = shard_grid_dual_step(mesh)
     for k in COUNTED:
         getattr(K, k).launches = 0
     sharded = step(*args)
     launches = {k: getattr(K, k).launches for k in COUNTED}
+    for k in COUNTED:
+        getattr(K, k).launches = 0
     one = fused_grid_dual_step(*args)
+    one_launches = {k: getattr(K, k).launches for k in COUNTED}
+    composed = fused_grid_dual_step_plain(*args)
+    on_card_plain = K.grid_dual_plain(*args, 0, BAND_ROWS)
     torch.cuda.synchronize()
-    for i, (p, o, sh) in enumerate(zip(plain, one, sharded)):
-        if not (torch.equal(o.cpu(), p) and torch.equal(sh.cpu(), p)):
-            fail(f"fused dual step: output {i} differs between the plain version, one card and "
-                 f"the mesh")
+    for i, (p, o, sh, c, q) in enumerate(zip(plain, one, sharded, composed, on_card_plain)):
+        err = max(err, max_err(o.cpu(), p), max_err(sh.cpu(), p))
+        if not all(torch.equal(x.cpu(), p) for x in (o, sh, c, q)):
+            fail(f"fused dual step: output {i} differs between the plain version, one card, the "
+                 f"mesh and the composition")
     slabs = expected_slabs([BAND_ROWS], mesh.size, 8)
-    if (launches["filter_select"], launches["fdct_quant"]) != (slabs, slabs):
-        fail(f"shard_grid_dual_step: launches {launches}, expected {slabs} slabs")
+    if (launches["grid_dual"], launches["filter_select"], launches["fdct_quant"]) != (slabs, 0, 0):
+        fail(f"shard_grid_dual_step: launches {launches}, expected {slabs} grid_dual, no "
+             f"filter_select and no fdct_quant")
+    if (one_launches["grid_dual"], one_launches["filter_select"],
+            one_launches["fdct_quant"]) != (1, 0, 0):
+        fail(f"fused_grid_dual_step: launches {one_launches}, expected 1 grid_dual only")
+    add_launches(launches, one_launches)
     moved = sum(t.numel() * t.element_size() for t in (*args, *one))
     say(f"fused dual step over one {BAND_ROWS}x{GRID * TILE} band: shard_grid_dual_step over "
-        f"{mesh} == fused_grid_dual_step on one card == plain on the CPU; sharded launches "
-        f"{launches}")
-    return {"one_device": device_time(lambda: fused_grid_dual_step(*args), what="fused step"),
-            "one_events": time_cuda(lambda: fused_grid_dual_step(*args)),
-            "sharded_events": time_cuda(lambda: step(*args)),
-            "plain_ms": plain_ms, "launches": launches, "moved": moved}
+        f"{mesh} == fused_grid_dual_step on one card == the composition on the card == the "
+        f"plain step on the card and on the CPU; variants run {sorted(variants)}; sharded "
+        f"launches {launches}")
+    timing = in_turns(lambda: fused_grid_dual_step(*args),
+                      lambda: fused_grid_dual_step_plain(*args), "fused step")
+    # Waves: two CTAs an SM, 8 a strip (csrc/grid_dual.cu), so one wave of
+    # the card's SMs holds 33 strips; the grid's first tile row, cut at
+    # these heights, on both sides of that.
+    full = torch.from_numpy(np.stack([t[:WAVE_ROWS[-1]] for t in tiles[:GRID]])[None]).to(dev)
+    waves = {}
+    for rows in WAVE_ROWS:
+        part = full[:, :, :rows].contiguous()
+        waves[rows] = device_time(lambda: fused_grid_dual_step(part, *args[1:]),
+                                  what=f"grid_dual over {rows} rows")["median"]
+    composition = sharded_composition(mesh)
+    mesh_turns = {"kernel": [], "yardstick": []}
+    for which in ("yardstick", "kernel", "kernel", "yardstick"):
+        fn = step if which == "kernel" else composition
+        mesh_turns[which].append(time_cuda(lambda: fn(*args)))
+    return {**timing, "plain": time_cuda(lambda: K.grid_dual_plain(*args, 0, BAND_ROWS), reps=5,
+                                         warmup=1),
+            "sharded_events": [t["median"] for t in mesh_turns["kernel"]],
+            "sharded_composition_events": [t["median"] for t in mesh_turns["yardstick"]],
+            "plain_cpu_ms": plain_cpu_ms, "launches": launches, "moved": moved,
+            "max_abs_err": err, "waves": waves}
 
 
 def mesh_phase(outs: dict, names: dict, cases: dict, tiles: list[np.ndarray],
@@ -1817,12 +1947,28 @@ def mesh_phase(outs: dict, names: dict, cases: dict, tiles: list[np.ndarray],
     summary["virtual_2x2"].update(runs)
     fused = fused_step_check(tiles, virtual, dev)
     add_launches(total, fused["launches"])
+    b = bound_ms(fused["moved"])
     summary["fused_dual_step"] = {
-        "one_device_ms": round(fused["one_device"]["median"], 4),
-        "one_device_events_ms": round(fused["one_events"]["median"], 4),
-        "virtual_2x2_events_ms": round(fused["sharded_events"]["median"], 4),
-        "plain_cpu_ms": round(fused["plain_ms"], 1), "bytes": fused["moved"],
-        "bound_ms": round(bound_ms(fused["moved"]), 4)}
+        "grid_dual_device_ms": round(fused["kernel_device"]["median"], 4),
+        "grid_dual_events_ms": round(fused["kernel_events"]["median"], 4),
+        "composition_device_ms": round(fused["yardstick_device"]["median"], 4),
+        "composition_events_ms": round(fused["yardstick_events"]["median"], 4),
+        "plain_on_card_events_ms": round(fused["plain"]["median"], 4),
+        "virtual_2x2_events_ms": [round(x, 4) for x in fused["sharded_events"]],
+        "virtual_2x2_composition_events_ms": [round(x, 4)
+                                              for x in fused["sharded_composition_events"]],
+        "plain_cpu_ms": round(fused["plain_cpu_ms"], 1), "bytes": fused["moved"],
+        "bound_ms": round(b, 4),
+        "bound_share_pct": round(100 * b / fused["kernel_device"]["median"], 1),
+        "device_ms_by_rows": {r: round(ms, 4) for r, ms in fused["waves"].items()}}
+    say(f"grid_dual, one {BAND_ROWS}x{GRID * TILE} band in turns with the composition it "
+        f"replaced: grid_dual {fmt(fused['kernel_device'])} [events {fmt(fused['kernel_events'])}]"
+        f"; composition {fmt(fused['yardstick_device'])} [events "
+        f"{fmt(fused['yardstick_events'])}]; bound {fused['moved']} B = {b:.4f} ms, grid_dual at "
+        f"{100 * b / fused['kernel_device']['median']:.1f}% of it; virtual 2x2 mesh by events, "
+        f"in turns: grid_dual {fused['sharded_events']} ms, composition "
+        f"{fused['sharded_composition_events']} ms; grid_dual alone by band rows: "
+        f"{ {r: round(ms, 4) for r, ms in fused['waves'].items()} } ms device [{card}]")
     summary["memory_peak_bytes"] = {"grid_jpeg_67mp": peaks["full"], "top_half": peaks["half"],
                                     "limit_growth": limit}
     summary["sprites_across_slab_edges"] = crossing
@@ -2285,6 +2431,7 @@ def main() -> None:
         {"grid_jpeg": grid_jpeg, "grid_png": grid_png, "positioned_png": positioned,
          "positioned_jpeg": positioned_jpeg}, tiles, tiles_png, sprites, dev, card)
     add_launches(launches, mesh_launches)
+    errs["grid_dual"] = fused["max_abs_err"]
     say(f"launches of the main paths and the mesh phase, summed: {launches}")
     lap("phase 4, mesh")
 
@@ -2424,6 +2571,13 @@ def main() -> None:
             "ms": t[f"{tag}_device"]["median"], "plain_ms": t[f"{tag}_plain"]["median"],
             "bound_ms": bound_ms(moved[tag]), "bound_by": "bytes",
             "library_ms": t[f"{library}_device"]["median"] if library else None})
+    kernels.append({
+        "name": "grid_dual", "route": "cuda", "source": "image_stitch_tpu_torch/csrc/grid_dual.cu",
+        "replaces": "image_stitch_tpu/ops/fused.py:57 (and :37, :49; sharded "
+                    "image_stitch_tpu/parallel/mesh.py:85)",
+        "launches": launches["grid_dual"], "max_abs_err": errs["grid_dual"],
+        "ms": fused["kernel_device"]["median"], "plain_ms": fused["plain"]["median"],
+        "bound_ms": bound_ms(fused["moved"]), "bound_by": "bytes", "library_ms": None})
     for k in kernels:
         say(f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "
             f"({100 * k['bound_ms'] / k['ms']:.1f}% of it) [{card}]")

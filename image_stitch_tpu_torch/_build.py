@@ -41,6 +41,7 @@ GXX_FLAGS = ["-std=c++17", "-O2", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U32 = ctypes.c_uint32
+_U64 = ctypes.c_uint64
 _I64 = ctypes.c_int64
 _GEOM = ctypes.POINTER(ctypes.c_int32)
 
@@ -150,6 +151,9 @@ def load_cuda_kernels() -> ctypes.CDLL:
                                               _P]
         lib.group_layout_launch.restype = _I
         lib.group_layout_launch.argtypes = [_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P]
+        lib.grid_dual_launch.restype = _I
+        lib.grid_dual_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P,
+                                         _P, _P, _P, _P, _P, _I, _U64, _U32, _P]
         _loaded["cuda"] = lib
     return _loaded["cuda"]
 
@@ -211,5 +215,10 @@ def load_host_shim() -> ctypes.CDLL:
         lib.fdct_quantize_host.argtypes = [_P, _P, _P, _I]
         lib.fdct_quantize_recip_host.restype = None
         lib.fdct_quantize_recip_host.argtypes = [_P, _P, _P, _I]
+        lib.grid_dual_ctas_host.restype = _I
+        lib.grid_dual_ctas_host.argtypes = [_I, _I]
+        lib.grid_dual_host.restype = None
+        lib.grid_dual_host.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P,
+                                       _P, _P, _P]
         _loaded["host"] = lib
     return _loaded["host"]

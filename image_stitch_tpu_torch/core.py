@@ -1119,3 +1119,14 @@ class TorchStreamingConcatenator:
             self.stats.record_band(canvas.shape[0], canvas.shape[1])
             yield from encoder.encode_band(canvas)
         yield from encoder.finish()
+
+
+def concat_core(options, device="cuda") -> bytes:
+    """Collect the full stream (reference: concat core fn,
+    image-concat-core.ts:1475-1503)."""
+    return b"".join(TorchStreamingConcatenator(options, device).stream())
+
+
+def concat_streaming_core(options, device="cuda") -> Iterator[bytes]:
+    """(reference: concatStreaming, image-concat-core.ts:1505-1511)."""
+    return TorchStreamingConcatenator(options, device).stream()

@@ -12,6 +12,7 @@
 #include "composite.cuh"
 #include "fdct_quant.cuh"
 #include "filter.cuh"
+#include "grid_dual.cuh"
 #include "idct.cuh"
 #include "layout.cuh"
 #include "pack_merge.cuh"
@@ -426,4 +427,135 @@ extern "C" void fdct_quantize_host(const int32_t* c, const int32_t* q, int16_t* 
 extern "C" void fdct_quantize_recip_host(const int32_t* c, const int32_t* q, int16_t* out,
                                          int n) {
   for (int i = 0; i < n; ++i) out[i] = fdct_quantize_recip(c[i], q[i], fdct_recip(q[i]));
+}
+
+// grid_dual_ctas: the CTAs of a launch over `rows` rows of w pixels.
+extern "C" int grid_dual_ctas_host(int rows, int w) { return grid_dual_ctas(rows, w); }
+
+// The fused grid step as the card's CTAs split it: per 8-row strip, each
+// CTA of the strip (grid_dual_split) walks its chunk's windows,
+// each window in its 8 warps' slices: the slice's rows and the row above
+// from the tile stack (grid_pixel) into a buffer laid out as a warp's
+// shared memory, the slice's blocks (fdct_row_444 per block row,
+// fdct_column per block column) and each row's five sums of the warp
+// (filter_word_scores), added over the CTA's warps; then each row's filter
+// from the CTAs' sums in rank order (grid_dual_choose), and the chosen
+// residues (filter_word_residue), slice by slice, the rows loaded again.
+extern "C" void grid_dual_host(const uint8_t* tiles, const uint8_t* prev, int gx, int th,
+                               int tw, int r0, int r1, const int32_t* lq, const int32_t* cq,
+                               int png, int jpeg, int32_t* types, uint8_t* filtered,
+                               uint8_t* last, int16_t* y, int16_t* cb, int16_t* cr) {
+  const int w = gx * tw;
+  const int rows = r1 - r0;
+  const int warps = GRID_DUAL_THREADS / 32;
+  const GridDualSplit sp = grid_dual_split(w);
+  const int stride = grid_dual_stride(sp.win_px);
+  const int slice_px = grid_dual_slice_px(sp.win_px);
+  std::vector<uint32_t> raw((size_t)(GRID_DUAL_ROWS + 1) * (size_t)stride);
+  std::vector<uint32_t> partial((size_t)sp.ctas * GRID_DUAL_ROWS * FILTER_COUNT);
+  const int32_t* q[2] = {lq, cq};
+  uint32_t m[2][64];
+  for (int t = 0; jpeg && t < 2; ++t) {
+    for (int i = 0; i < 64; ++i) m[t][i] = fdct_recip(q[t][i]);
+  }
+  int16_t* outs[3] = {y, cb, cr};
+  // Raw row j = canvas row row_first + j over [xs, x_end), the word before
+  // xs at index GRID_DUAL_PAD - 1 (0 at the canvas's edge); row 0, the row
+  // above, only for the PNG half.
+  auto load = [&](int row_first, int n_rows, int xs, int x_end) {
+    for (int j = png ? 0 : 1; j <= n_rows; ++j) {
+      uint32_t* row = raw.data() + (size_t)j * stride + GRID_DUAL_PAD;
+      row[-1] = 0u;
+      if (xs > 0) memcpy(&row[-1], grid_pixel(tiles, prev, row_first + j, xs - 1, gx, th, tw), 4);
+      for (int x = xs; x < x_end; ++x) {
+        memcpy(&row[x - xs], grid_pixel(tiles, prev, row_first + j, x, gx, th, tw), 4);
+      }
+    }
+  };
+  // Each warp slice [xs, x_end) of CTA `rank`, in the kernel's order.
+  auto slices = [&](int rank, auto&& body) {
+    const int x_lo = rank * sp.chunk_px;
+    const int x_hi = x_lo + sp.chunk_px < w ? x_lo + sp.chunk_px : w;
+    for (int win = 0; win < sp.windows; ++win) {
+      for (int warp = 0; warp < warps; ++warp) {
+        const int xs = x_lo + win * sp.win_px + warp * slice_px;
+        const int x_end = x_hi < xs + slice_px ? x_hi : xs + slice_px;
+        if (x_end > xs) body(warp, xs, x_end);
+      }
+    }
+  };
+  for (int strip = 0; strip * GRID_DUAL_ROWS < rows; ++strip) {
+    const int n_rows = rows - strip * GRID_DUAL_ROWS < GRID_DUAL_ROWS
+                           ? rows - strip * GRID_DUAL_ROWS : GRID_DUAL_ROWS;
+    const int row_first = r0 + strip * GRID_DUAL_ROWS - 1;
+    const bool last_strip = strip * GRID_DUAL_ROWS + n_rows == rows;
+    for (int rank = 0; rank < sp.ctas; ++rank) {
+      std::vector<uint32_t> wsums((size_t)warps * GRID_DUAL_ROWS * FILTER_COUNT, 0u);
+      slices(rank, [&](int warp, int xs, int x_end) {
+        load(row_first, n_rows, xs, x_end);
+        for (int px = xs; jpeg && px < x_end; px += 8) {
+          int32_t ws[3][64];
+          for (int k = 0; k < 8; ++k) {
+            uint32_t px8[8];
+            memcpy(px8, raw.data() + (size_t)(k + 1) * stride + GRID_DUAL_PAD + (px - xs), 32);
+            int32_t r[8], g[8], b[8];
+            grid_rgb8(px8, r, g, b);
+            fdct_row_444(r, g, b, ws[0] + 8 * k, ws[1] + 8 * k, ws[2] + 8 * k);
+          }
+          const size_t index = (size_t)strip * (size_t)(w / 8) + (size_t)(px / 8);
+          for (int c = 0; c < 8; ++c) {
+            for (int comp = 0; comp < 3; ++comp) {
+              const int t = comp != 0;
+              int32_t v[8];
+              for (int r = 0; r < 8; ++r) v[r] = ws[comp][r * 8 + c];
+              fdct_column(v, c, q[t], m[t], outs[comp] + index * 64 + c, 8);
+            }
+          }
+        }
+        for (int k = 0; png && k < n_rows; ++k) {
+          const uint32_t* row = raw.data() + (size_t)(k + 1) * stride + GRID_DUAL_PAD;
+          const uint32_t* up = raw.data() + (size_t)k * stride + GRID_DUAL_PAD;
+          uint32_t* sums = wsums.data() + ((size_t)warp * GRID_DUAL_ROWS + k) * FILTER_COUNT;
+          for (int i = 0; i < x_end - xs; ++i) {
+            filter_word_scores(row[i], row[i - 1], up[i], up[i - 1], sums);
+          }
+        }
+        if (png && last_strip) {
+          memcpy(last + (size_t)xs * 4, raw.data() + (size_t)n_rows * stride + GRID_DUAL_PAD,
+                 (size_t)(x_end - xs) * 4);
+        }
+      });
+      uint32_t* cta = partial.data() + (size_t)rank * GRID_DUAL_ROWS * FILTER_COUNT;
+      for (int i = 0; i < GRID_DUAL_ROWS * FILTER_COUNT; ++i) {
+        cta[i] = 0u;
+        for (int warp = 0; warp < warps; ++warp) {
+          cta[i] += wsums[(size_t)warp * GRID_DUAL_ROWS * FILTER_COUNT + i];
+        }
+      }
+    }
+    if (!png) continue;
+    std::vector<const uint32_t*> parts(sp.ctas);
+    for (int rank = 0; rank < sp.ctas; ++rank) {
+      parts[rank] = partial.data() + (size_t)rank * GRID_DUAL_ROWS * FILTER_COUNT;
+    }
+    int choice[GRID_DUAL_ROWS];
+    for (int k = 0; k < n_rows; ++k) {
+      choice[k] = grid_dual_choose(parts.data(), sp.ctas, k);
+      types[strip * GRID_DUAL_ROWS + k] = choice[k];
+    }
+    for (int rank = 0; rank < sp.ctas; ++rank) {
+      slices(rank, [&](int, int xs, int x_end) {
+        load(row_first, n_rows, xs, x_end);
+        for (int k = 0; k < n_rows; ++k) {
+          const uint32_t* row = raw.data() + (size_t)(k + 1) * stride + GRID_DUAL_PAD;
+          const uint32_t* up = raw.data() + (size_t)k * stride + GRID_DUAL_PAD;
+          uint8_t* out = filtered + (size_t)(strip * GRID_DUAL_ROWS + k) * (size_t)w * 4;
+          for (int i = 0; i < x_end - xs; ++i) {
+            const uint32_t r = filter_word_residue(choice[k], row[i], row[i - 1], up[i], up[i - 1]);
+            memcpy(out + (size_t)(xs + i) * 4, &r, 4);
+          }
+        }
+      });
+    }
+  }
 }

@@ -4,8 +4,9 @@ The counterpart of ``image_stitch_tpu/models/__init__.py``. This domain has
 no neural models; its "model families" are its band programs, assembled
 from ops/ the way a model is assembled from layers:
 
-- :func:`fused_grid_dual_step`: uniform-grid compose, then PNG filter
-  select and JPEG colour, FDCT and quantize off one canvas (ops/fused.py);
+- :func:`fused_grid_dual_step`: PNG filter select and JPEG colour, FDCT
+  and quantize of a uniform grid, one read of its tile stack (ops/fused.py,
+  csrc/grid_dual.cu);
 - :func:`entropy_pack_carried`: the JPEG band's entropy pack as one carried
   stream, the counterpart of ``entropy_pack_trace_v2``
   (ops/jpeg_entropy_device.py);

@@ -23,7 +23,8 @@ class EncodeCounters:
     ``core._encode_png`` on ``ops.backend.NumpyBackend``), which launches no
     kernel. Under a mesh (``parallel.mesh``): the JPEG dispatches made on
     its shards (each one quantize, symbols, layout and pack; a band's tail
-    group included) and the PNG slabs filtered on them."""
+    group included), and the slabs that ``TorchBackend`` filtered or
+    quantized on them."""
 
     bands: int = 0
     repacks: int = 0

@@ -5,9 +5,10 @@
 ``jpeg_quantize_420_trace``: on a CUDA band they launch the kernel
 ``kernels.fdct_quant`` (csrc/fdct_quant.cu), on a CPU band its plain
 version (``ops/jpeg_dct.py``). ``TorchBackend`` is the counterpart of that
-module's ``JaxBackend`` for PNG output: its filter select is the CUDA
-kernel ``kernels.filter_select``, launched once per band, or with a
-``mesh`` once per non-empty row slab, on the slab's shard.
+module's ``JaxBackend``: its filter select is the CUDA kernel
+``kernels.filter_select`` and its JPEG quantize ``kernels.fdct_quant``,
+each launched once per band, or with a ``mesh`` once per non-empty row
+slab, on the slab's shard.
 """
 
 from __future__ import annotations
@@ -65,9 +66,19 @@ class PendingFilter:
     done: list[torch.cuda.Event]
 
 
+@dataclass
+class PendingQuantize:
+    """A submitted band's quantized blocks: (y, cb, cr) host tensors (pinned
+    on CUDA) that the events in ``done`` mark filled (one, or under a mesh
+    one per slab; none on the CPU)."""
+
+    blocks: tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    done: list[torch.cuda.Event]
+
+
 class TorchBackend:
-    """PNG filter select of ``image_stitch_tpu.ops.backend``'s backend
-    contract on a torch device.
+    """PNG filter select and JPEG quantize of ``image_stitch_tpu.ops.
+    backend``'s backend contract on a torch device.
 
     ``png_filter_band_async`` never waits for the device: it uploads a host
     band through pinned memory (a tensor is taken where it lies), launches
@@ -80,7 +91,9 @@ class TorchBackend:
     its shard after the raw row just above it (the one-row halo; from a host
     band it is uploaded with the slab) and read back into its rows of the
     band's pinned buffers on the shard's stream. The carry is the last
-    slab's last raw row."""
+    slab's last raw row. The JPEG quantize splits rows in whole 8-row strips
+    (``row_slabs(h, mesh.size, 8)``), each slab's blocks read back into
+    their rows of the band's blocks."""
 
     name = "torch"
 
@@ -185,3 +198,63 @@ class TorchBackend:
 
     def png_filter_band(self, canvas, prev_row) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         return self.png_filter_band_wait(self.png_filter_band_async(canvas, prev_row))
+
+    def _tables(self, luma_q, chroma_q, dev: torch.device) -> list[torch.Tensor]:
+        return [(q if isinstance(q, torch.Tensor) else torch.from_numpy(np.asarray(q)))
+                .to(device=dev, dtype=torch.int32).contiguous() for q in (luma_q, chroma_q)]
+
+    def jpeg_quantize_band_async(self, band, luma_q, chroma_q) -> PendingQuantize:
+        """Queue the 4:4:4 quantize of ``band`` ((8k, W8, >= 3) uint8, host
+        array or tensor) with the (64,) natural-order tables (host or
+        device): ``kernels.fdct_quant`` once, or once per non-empty slab of
+        whole 8-row strips over the mesh, the blocks read back into pinned
+        host tensors."""
+        if self.mesh is not None:
+            return self._quantize_sharded(band, luma_q, chroma_q)
+        b = self._on_device(band)
+        blocks = jpeg_quantize(b, *self._tables(luma_q, chroma_q, b.device))
+        if b.device.type != "cuda":
+            return PendingQuantize(blocks, [])
+        done = torch.cuda.Event()
+        pending = PendingQuantize(tuple(self._to_host(t) for t in blocks), [done])
+        done.record()
+        return pending
+
+    def _quantize_sharded(self, band, luma_q, chroma_q) -> PendingQuantize:
+        """The band's quantize over the mesh, slab by slab."""
+        h, w = band.shape[:2]
+        if h % 8 or w % 8:
+            raise ValueError(f"band {h} x {w}: rows and columns must be multiples of 8")
+        on_card = self.mesh.device_type == "cuda"
+        n = (h // 8) * (w // 8)
+        blocks = tuple(torch.empty((n, 64), dtype=torch.int16, pin_memory=on_card)
+                       for _ in range(3))
+        done = []
+        for i, (r0, r1) in enumerate(row_slabs(h, self.mesh.size, 8)):
+            if r1 == r0:
+                continue
+            with self.mesh.shard(i) as dev:
+                slab = band_rows(band, r0, r1, dev).contiguous()
+                part = jpeg_quantize(slab, *self._tables(luma_q, chroma_q, dev))
+                at = slice(r0 // 8 * (w // 8), r1 // 8 * (w // 8))
+                for out, t in zip(blocks, part):
+                    out[at].copy_(t, non_blocking=True)
+                if on_card:
+                    done.append(torch.cuda.Event())
+                    done[-1].record()
+            self.counters.mesh_slabs += 1
+        return PendingQuantize(blocks, done)
+
+    @staticmethod
+    def jpeg_quantize_band_wait(pending: PendingQuantize) -> tuple[np.ndarray, ...]:
+        """(y, cb, cr), each (k * W8 / 8, 64) int16."""
+        for done in pending.done:
+            done.synchronize()
+        return tuple(t.numpy() for t in pending.blocks)
+
+    def jpeg_quantize_band(self, band, luma_q, chroma_q) -> tuple[np.ndarray, ...]:
+        """(8k, W8, >= 3) uint8 -> three (k * W8 / 8, 64) int16 block arrays."""
+        return self.jpeg_quantize_band_wait(self.jpeg_quantize_band_async(band, luma_q, chroma_q))
+
+    def jpeg_quantize_strip(self, strip, luma_q, chroma_q) -> tuple[np.ndarray, ...]:
+        return self.jpeg_quantize_band(strip, luma_q, chroma_q)

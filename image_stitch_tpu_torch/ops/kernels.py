@@ -27,7 +27,12 @@
   ``ops/jpeg_entropy_device.py::jpeg_pack_groups_from_blocks_trace`` and
   ``entropy_pack_trace_v2``: the sums and cumulative sums between the symbol
   streams and the pack (plain: ``ops/jpeg_entropy_device.
-  group_layout_plain``).
+  group_layout_plain``);
+- ``grid_dual`` (csrc/grid_dual.cu) replaces the fused uniform-grid step
+  ``ops/fused.py::fused_grid_dual_step`` (and its PNG and JPEG halves):
+  the tile stack read in place into the filter select and the quantize
+  (plain: ``grid_dual_plain``, the rows assembled, then
+  ``filter_select_plain`` and ``jpeg_dct.band_to_blocks_islow``).
 
 The sources' head comments say what bounds each on the H100 and what the
 design does about it.
@@ -998,3 +1003,208 @@ def group_layout(block_bits: torch.Tensor, n_groups: int = 1,
 
 
 group_layout.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# The fused uniform-grid step
+# --------------------------------------------------------------------------- #
+
+# How csrc/grid_dual.cu reads the tile stack, by the variant number its
+# launcher takes: 4 B or 16 B copies. "composition" is the step the kernel
+# replaces, which launches no grid_dual: the rows assembled by a copy, then
+# filter_select and fdct_quant.
+GRID_DUAL_VARIANTS = ("composition", "words", "vec16")
+
+
+def grid_dual_variant(tw: int, *addresses: int) -> int:
+    """The csrc/grid_dual.cu kernel for tiles ``tw`` pixels wide whose tile
+    stack and carry row start at ``addresses``: 16 B copies where a tile
+    row's bytes and the addresses are multiples of 16, 4 B copies where the
+    addresses are multiples of 4, and else the composition. An index into
+    ``GRID_DUAL_VARIANTS``."""
+    if any(a % 4 for a in addresses):
+        return 0
+    return 2 if tw % 4 == 0 and not any(a % 16 for a in addresses) else 1
+
+
+# CTAs across a strip of 8 canvas rows, and the fewest pixels each takes
+# where the width allows (csrc/grid_dual.cuh GRID_DUAL_MAX_CTAS,
+# GRID_DUAL_MIN_CHUNK_PX).
+GRID_DUAL_MAX_CTAS = 8
+GRID_DUAL_MIN_CHUNK_PX = 128
+# Words of each CTA's sums in the exchange (GRID_DUAL_SUMS): 8 rows x 5.
+GRID_DUAL_SUMS = 40
+
+
+def grid_dual_ctas(rows: int, w: int) -> int:
+    """CTAs of a csrc/grid_dual.cu launch over ``rows`` canvas rows of ``w``
+    pixels: per 8-row strip, chunks of a multiple of 8 pixels, at most
+    GRID_DUAL_MAX_CTAS of them and each of GRID_DUAL_MIN_CHUNK_PX pixels or
+    more where the width allows (csrc/grid_dual.cuh grid_dual_split)."""
+    groups = -(-w // 8)
+    k = min(GRID_DUAL_MAX_CTAS, max(1, -(-groups // (GRID_DUAL_MIN_CHUNK_PX // 8))))
+    chunk = -(-groups // k) * 8
+    return -(-rows // 8) * -(-w // chunk)
+
+
+# The exchange between a strip's CTAs of csrc/grid_dual.cu, one per (card,
+# stream): [scratch, its capacity in CTAs, tickets taken, last flag value].
+# Zeroed once, when made; see csrc/grid_dual.cu.
+_grid_scratch: dict[tuple[int, int], list] = {}
+
+
+def _grid_scratch_for(device: torch.device, stream: int, n_ctas: int) -> list:
+    """The exchange of ``stream``, grown to hold ``n_ctas``: a buffer that is
+    too small, or whose flag values are spent, is dropped for a new, zeroed
+    one (the launches that used it lie before on the same stream)."""
+    key = (device.index, stream)
+    state = _grid_scratch.get(key)
+    if state is None or state[1] < n_ctas or state[3] >= MASK32:
+        cap = max(1024, 1 << (n_ctas - 1).bit_length())
+        scratch = torch.zeros(2 + cap * (1 + GRID_DUAL_SUMS), dtype=torch.int32, device=device)
+        state = _grid_scratch[key] = [scratch, cap, 0, 0]
+    return state
+
+
+def grid_rows(tiles: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Canvas rows [lo, hi) of a (gy, gx, th, tw, C) tile stack as a
+    (hi - lo, gx * tw, C) tensor: a copy of the tile rows that hold them."""
+    gy, gx, th, tw, c = tiles.shape
+    if hi <= lo:
+        return tiles.new_empty((0, gx * tw, c))
+    t0, t1 = lo // th, -(-hi // th)
+    band = tiles[t0:t1].permute(0, 2, 1, 3, 4).reshape((t1 - t0) * th, gx * tw, c)
+    return band[lo - t0 * th:hi - t0 * th]
+
+
+def _grid_dual_composed(tiles, prev_row, luma_q, chroma_q, r0, r1, png, jpeg, select,
+                        quantize) -> tuple:
+    """Rows [r0, r1) of the tile stack assembled with the row above them,
+    then ``select`` (filter select, bpp 4) and ``quantize`` (4:4:4)."""
+    lo = max(r0 - 1, 0)
+    rows = grid_rows(tiles, lo, r1)
+    band = rows[r0 - lo:]
+    n = tiles.shape[1] * tiles.shape[3] * 4
+    out = []
+    if png:
+        prev = prev_row if r0 == 0 else rows[0].reshape(n)
+        if r1 == r0:
+            out += [torch.empty(0, dtype=torch.int32, device=tiles.device),
+                    tiles.new_empty((0, n)), prev]
+        else:
+            raw = band.reshape(r1 - r0, n)
+            types, filtered = select(raw.contiguous(), prev.contiguous(), 4)
+            out += [types.to(torch.int32), filtered, raw[-1]]
+    if jpeg:
+        if r1 == r0:
+            out += [torch.empty((0, 64), dtype=torch.int16, device=tiles.device)
+                    for _ in range(3)]
+        else:
+            out += list(quantize(band.contiguous(), luma_q, chroma_q))
+    return tuple(out)
+
+
+def grid_dual_plain(tiles: torch.Tensor, prev_row, luma_q, chroma_q, r0: int, r1: int,
+                    png: bool = True, jpeg: bool = True) -> tuple:
+    """Plain torch version of ``grid_dual``: the rows assembled, then
+    ``filter_select_plain`` and ``jpeg_dct.band_to_blocks_islow``."""
+    return _grid_dual_composed(tiles, prev_row, luma_q, chroma_q, r0, r1, png, jpeg,
+                               filter_select_plain, band_to_blocks_islow)
+
+
+def grid_dual_composed(tiles: torch.Tensor, prev_row, luma_q, chroma_q, r0: int, r1: int,
+                       png: bool = True, jpeg: bool = True) -> tuple:
+    """The step that ``grid_dual`` replaces: the rows assembled by a copy,
+    then the ``filter_select`` and ``fdct_quant`` wrappers (their kernels on
+    CUDA tensors, their plain versions on CPU tensors)."""
+    return _grid_dual_composed(tiles, prev_row, luma_q, chroma_q, r0, r1, png, jpeg,
+                               filter_select, fdct_quant)
+
+
+def grid_dual(tiles: torch.Tensor, prev_row, luma_q, chroma_q, r0: int = 0,
+              r1: int | None = None, png: bool = True, jpeg: bool = True) -> tuple:
+    """The fused uniform-grid step over canvas rows [r0, r1) (all rows by
+    default) of a (gy, gx, th, tw, 4) uint8 tile stack, read in place:
+    canvas pixel (r, x) is tiles[r // th, x // tw, r % th, x % tw].
+
+    With ``png``: the filter select of the rows at bpp 4 after the row above
+    them (``prev_row``, the (gx * tw * 4,) uint8 carry, for r0 = 0; canvas
+    row r0 - 1 otherwise, and ``prev_row`` may be None), giving types
+    (rows,) int32, filtered (rows, W * 4) uint8 and the raw row r1 - 1
+    (W * 4,) (the row above for an empty range). With ``jpeg`` (rows and W
+    multiples of 8): y, cb, cr (rows / 8 * W / 8, 64) int16 4:4:4 blocks,
+    strip-major, from the (64,) int32 tables. Returns the PNG outputs, then
+    the JPEG ones.
+
+    Launches csrc/grid_dual.cu once for CUDA tensors (the variant that
+    ``grid_dual_variant`` picks; where it picks "composition",
+    ``grid_dual_composed``, which launches filter_select and fdct_quant, and
+    no launch for an empty range); ``grid_dual_plain`` for CPU tensors."""
+    device = tiles.device
+    if tiles.dtype != torch.uint8 or tiles.ndim != 5 or tiles.shape[4] != 4:
+        raise TypeError(f"tiles: expected a (gy, gx, th, tw, 4) uint8 tensor, got "
+                        f"{tuple(tiles.shape)} {tiles.dtype}")
+    if not tiles.is_contiguous():
+        raise ValueError("tiles: must be contiguous")
+    gy, gx, th, tw, _ = tiles.shape
+    h, w = gy * th, gx * tw
+    r1 = h if r1 is None else r1
+    if not 0 <= r0 <= r1 <= h:
+        raise ValueError(f"rows [{r0}, {r1}) outside the canvas's {h}")
+    if not (png or jpeg):
+        raise ValueError("grid_dual: neither the PNG nor the JPEG half asked for")
+    if png:
+        if w * 4 >= MAX_FILTER_ROW:
+            raise ValueError(f"rows of {w * 4} bytes: the kernel takes fewer than "
+                             f"{MAX_FILTER_ROW}")
+        if r0 == 0:
+            _check(prev_row, "prev_row", torch.uint8, 1, device)
+            if prev_row.shape[0] != w * 4:
+                raise ValueError(f"prev_row has {prev_row.shape[0]} bytes, the rows {w * 4}")
+    if jpeg:
+        _check(luma_q, "luma_q", torch.int32, 1, device)
+        _check(chroma_q, "chroma_q", torch.int32, 1, device)
+        if luma_q.shape[0] != 64 or chroma_q.shape[0] != 64:
+            raise ValueError("quantization tables must hold 64 values")
+        if (r1 - r0) % 8 or w % 8:
+            raise ValueError(f"{r1 - r0} x {w}: the JPEG half takes multiples of 8")
+    if device.type == "cpu":
+        return grid_dual_plain(tiles, prev_row, luma_q, chroma_q, r0, r1, png, jpeg)
+    if device.type != "cuda":
+        raise ValueError(f"grid_dual: unsupported device {device}")
+    if r1 == r0:
+        return grid_dual_plain(tiles, prev_row, luma_q, chroma_q, r0, r1, png, jpeg)
+    prev_used = png and r0 == 0
+    variant = grid_dual_variant(tw, tiles.data_ptr(), *([prev_row.data_ptr()] if prev_used else []))
+    if variant == 0:
+        return grid_dual_composed(tiles, prev_row, luma_q, chroma_q, r0, r1, png, jpeg)
+    rows = r1 - r0
+    out: list[torch.Tensor] = []
+    ptrs = [0] * 6
+    if png:
+        out += [torch.empty(rows, dtype=torch.int32, device=device),
+                torch.empty((rows, w * 4), dtype=torch.uint8, device=device),
+                torch.empty(w * 4, dtype=torch.uint8, device=device)]
+        ptrs[:3] = [t.data_ptr() for t in out[:3]]
+    if jpeg:
+        n = rows // 8 * (w // 8)
+        blocks = [torch.empty((n, 64), dtype=torch.int16, device=device) for _ in range(3)]
+        out += blocks
+        ptrs[3:] = [t.data_ptr() for t in blocks]
+    lib = load_cuda_kernels()
+    stream = _stream(device)
+    n_ctas = grid_dual_ctas(rows, w)
+    exchange = _grid_scratch_for(device, stream, n_ctas) if png else [None, 0, 0, 0]
+    _launch(lib.grid_dual_launch, tiles.data_ptr(), prev_row.data_ptr() if prev_used else 0,
+            gx, th, tw, r0, r1, luma_q.data_ptr() if jpeg else 0,
+            chroma_q.data_ptr() if jpeg else 0, int(png), int(jpeg), variant, *ptrs,
+            0 if exchange[0] is None else exchange[0].data_ptr(), exchange[1], exchange[2],
+            exchange[3] + 1, stream)
+    if png:
+        exchange[2] += n_ctas
+        exchange[3] += 1
+    grid_dual.launches += 1
+    return tuple(out)
+
+
+grid_dual.launches = 0

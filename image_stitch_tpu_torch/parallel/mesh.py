@@ -217,38 +217,33 @@ def band_rows(band, r0: int, r1: int, device: torch.device) -> torch.Tensor:
 def _grid_step(mesh: Mesh, png: bool, jpeg: bool):
     """The fused step's work over the mesh: the canvas rows split by
     ``row_slabs`` (whole 8-row strips where the JPEG half runs), each
-    shard's filter select after its halo row and its quantize on its own
-    device, the results gathered onto the mesh's first device in row
-    order."""
-    from ..ops.device import jpeg_quantize
-    from ..ops.fused import assemble_uniform_grid
-    from ..ops.kernels import filter_select
+    non-empty slab one ``kernels.grid_dual`` over its rows of the tile stack
+    on its shard, which reads the row above the slab from the tiles (the
+    halo costs no copy); a shard on another card first gets the tile rows
+    its slab and its halo lie in. The results are gathered onto the mesh's
+    first device in row order; the last raw row is the last slab's."""
+    from ..ops.kernels import grid_dual
 
     first = mesh.flat()[0]
 
     def step(tiles: torch.Tensor, *args):
-        canvas = assemble_uniform_grid(tiles)
-        h = canvas.shape[0]
+        th = tiles.shape[2]
+        h = tiles.shape[0] * th
+        prev = args[0] if png else None
+        lq, cq = args[-2:] if jpeg else (None, None)
         outs = []
         for i, (r0, r1) in enumerate(row_slabs(h, mesh.size, 8 if jpeg else 1)):
             if r1 == r0:
                 continue
             with mesh.shard(i) as dev:
-                slab = band_rows(canvas, r0, r1, dev)
-                res = []
-                if png:
-                    prev = args[0] if r0 == 0 else canvas[r0 - 1].reshape(-1)
-                    types, filtered = filter_select(slab.reshape(r1 - r0, -1),
-                                                    prev.to(dev, non_blocking=True), 4)
-                    res += [types.to(torch.int32), filtered]
-                if jpeg:
-                    lq, cq = (q.to(dev, non_blocking=True) for q in args[-2:])
-                    res += list(jpeg_quantize(slab, lq, cq))
-                outs.append(res)
-        out = [torch.cat([o[k].to(first) for o in outs]) for k in range(len(outs[0]))]
-        if png:
-            out.insert(2, canvas[-1].reshape(-1).to(first))
-        return tuple(out)
+                t0 = max(r0 - 1, 0) // th
+                part = band_rows(tiles, t0, -(-r1 // th), dev)
+                p = prev.to(dev, non_blocking=True) if png and r0 == 0 else None
+                qs = [q.to(dev, non_blocking=True) for q in (lq, cq)] if jpeg else [None, None]
+                outs.append(grid_dual(part, p, *qs, r0 - t0 * th, r1 - t0 * th, png, jpeg))
+        return tuple(outs[-1][k].to(first) if png and k == 2
+                     else torch.cat([o[k].to(first) for o in outs])
+                     for k in range(len(outs[0])))
 
     return step
 

@@ -1,8 +1,10 @@
-"""Synthetic inputs for checking the batched decode kernels
-(``ops.kernels.idct_dequant_batch``, ``ycc_rgba_batch``) against their plain
-versions: bands of several JPEG tiles of every kind, with their tables, their
-buffers and what each tile is, made from a numpy seed. The CPU tests, the
-``cuda`` tests and ``chip_smoke.py`` hold the kernels to the same cases.
+"""Synthetic inputs for checking kernels against their plain versions, made
+from a numpy seed: for the batched decode kernels
+(``ops.kernels.idct_dequant_batch``, ``ycc_rgba_batch``), bands of several
+JPEG tiles of every kind, with their tables, their buffers and what each
+tile is; for the fused grid step (``ops.kernels.grid_dual``), tile stacks
+whose rows pick every PNG filter. The CPU tests, the ``cuda`` tests and
+``chip_smoke.py`` hold the kernels to the same cases.
 """
 
 from __future__ import annotations
@@ -131,3 +133,33 @@ def mixed_band(seed: int, width_off_4: bool = False) -> Band:
     assert {x % 4 for x in x0s} == {0, 1, 2, 3}
     width = at + (4 - at % 4) % 4 + (3 if width_off_4 else 0)
     return make_band(rng, tiles, x0s, width)
+
+
+def grid_tiles(shape: tuple[int, int, int, int], seed: int) -> np.ndarray:
+    """A (gy, gx, th, tw, 4) uint8 tile stack: each tile random bytes, a
+    ramp across (Sub wins), a ramp down (Up wins), a diagonal ramp with
+    noise, pure blue (Cb = 256; flat, so every filter but None scores 0
+    and ties) or random bytes over rows of zeros, so that a row's filter
+    depends on every tile it crosses."""
+    gy, gx, th, tw = shape
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(th), np.arange(tw), indexing="ij")
+    tiles = np.empty((gy, gx, th, tw, 4), np.uint8)
+    for i in range(gy):
+        for j in range(gx):
+            kind = int(rng.integers(0, 6))
+            step, base = rng.integers(1, 9, 4), rng.integers(0, 256, 4)
+            if kind == 0:
+                t = rng.integers(0, 256, (th, tw, 4))
+            elif kind == 1:
+                t = xx[..., None] * step + base
+            elif kind == 2:
+                t = yy[..., None] * step + base
+            elif kind == 3:
+                t = (xx + yy)[..., None] * step + rng.integers(0, 3, (th, tw, 4))
+            elif kind == 4:
+                t = np.broadcast_to(np.array([0, 0, 255, 255]), (th, tw, 4))
+            else:
+                t = rng.integers(0, 256, (th, tw, 4)) * (yy % 3 == 0)[..., None]
+            tiles[i, j] = np.asarray(t) % 256
+    return tiles

@@ -696,22 +696,154 @@ def test_mesh_positioned_matches_host(cuda, fmt):
 
 
 def test_mesh_fused_steps_match_one_device_and_plain(cuda):
+    """The sharded steps over the virtual mesh: one grid_dual launch per
+    non-empty slab, and no filter_select or fdct_quant launch; each equal
+    to one card's step and to the plain step on the CPU."""
     from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
-    from image_stitch_tpu_torch.ops.fused import fused_grid_dual_step
-    from image_stitch_tpu_torch.parallel.mesh import shard_grid_dual_step
+    from image_stitch_tpu_torch.ops import fused
+    from image_stitch_tpu_torch.parallel import mesh
 
     rng = np.random.default_rng(4)
     tiles = torch.from_numpy(rng.integers(0, 256, (2, 4, 24, 32, 4), dtype=np.uint8))
     prev = torch.from_numpy(rng.integers(0, 256, 4 * 32 * 4, dtype=np.uint8))
     lq, cq = (torch.from_numpy(q) for q in quality_scaled_tables(85))
-    plain = fused_grid_dual_step(tiles, prev, lq, cq)
+    cpu_args = (tiles, prev, lq, cq)
+    for name, align, pick in (("dual", 8, (0, 1, 2, 3)), ("png", 1, (0, 1)),
+                              ("jpeg", 8, (0, 2, 3))):
+        args = [cpu_args[i].to(cuda) for i in pick]
+        plain = getattr(fused, f"fused_grid_{name}_step")(*[cpu_args[i] for i in pick])
+        one = getattr(fused, f"fused_grid_{name}_step")(*args)
+        before = launch_counts()
+        sharded = getattr(mesh, f"shard_grid_{name}_step")(virtual_mesh(cuda))(*args)
+        torch.cuda.synchronize()
+        slabs = sum(r1 > r0 for r0, r1 in mesh.row_slabs(48, 4, align))
+        assert launch_counts(before) == (slabs, 0, 0), name
+        for p, o, s in zip(plain, one, sharded, strict=True):
+            assert s.device == cuda
+            assert torch.equal(o.cpu(), p) and torch.equal(s.cpu(), p)
+
+
+def test_backend_jpeg_quantize_on_the_card(cuda):
+    """``TorchBackend``'s JPEG quantize on the card, alone and over the
+    virtual mesh (one fdct_quant launch per band or non-empty slab), from a
+    host array and from a tensor: the CPU backend's blocks."""
+    from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
+    from image_stitch_tpu_torch.ops.device import TorchBackend
+
+    band = np.random.default_rng(8).integers(0, 256, (48, 72, 4), dtype=np.uint8)
+    lq, cq = quality_scaled_tables(50)
+    want = TorchBackend("cpu").jpeg_quantize_band(band, lq, cq)
+    for mesh, launches in ((None, 1), (virtual_mesh(cuda), 4)):
+        backend = TorchBackend(cuda, mesh=mesh)
+        for given in (band, torch.from_numpy(band).to(cuda)):
+            before = K.fdct_quant.launches
+            got = backend.jpeg_quantize_band(given, lq, cq)
+            assert K.fdct_quant.launches - before == launches
+            for a, b in zip(got, want, strict=True):
+                np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------------ grid_dual --- #
+
+
+def launch_counts(before=(0, 0, 0)) -> tuple[int, int, int]:
+    """(grid_dual, filter_select, fdct_quant) launches since ``before``."""
+    now = (K.grid_dual.launches, K.filter_select.launches, K.fdct_quant.launches)
+    return tuple(a - b for a, b in zip(now, before))
+
+
+# entry()'s shape, a tile height that cuts the strips, 40 B tile rows (4 B
+# copies), two windows a CTA, rows and a width off 8, the smoke's band.
+GRID_SHAPES = [(2, 4, 64, 64), (2, 3, 12, 40), (2, 4, 8, 10), (1, 9, 8, 1100), (3, 2, 7, 13),
+               (1, 8, 256, 1024)]
+
+
+@pytest.mark.parametrize("shape", GRID_SHAPES)
+def test_grid_dual_matches_plain(cuda, shape):
+    """Each half alone and both, over all rows and over each non-empty slab
+    of a four-shard split (the smoke's band: both halves, all rows): equal
+    to ``grid_dual_plain`` on the CPU, one grid_dual launch each and no
+    filter_select or fdct_quant launch."""
+    from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
+    from image_stitch_tpu_torch.parallel.mesh import row_slabs
+    from image_stitch_tpu_torch.testing import grid_tiles
+
+    gy, gx, th, tw = shape
+    h, w = gy * th, gx * tw
+    tiles = torch.from_numpy(grid_tiles(shape, seed=sum(shape)))
+    prev = torch.from_numpy(np.random.default_rng(1).integers(0, 256, w * 4, dtype=np.uint8))
+    lq, cq = (torch.from_numpy(q) for q in quality_scaled_tables(85))
     args = [t.to(cuda) for t in (tiles, prev, lq, cq)]
-    one = fused_grid_dual_step(*args)
-    sharded = shard_grid_dual_step(virtual_mesh(cuda))(*args)
+    halves = [(True, False)] + ([(False, True), (True, True)] if h % 8 == w % 8 == 0 else [])
+    if h * w > 1 << 20:
+        halves = [(True, True)]
+    for png, jpeg in halves:
+        ranges = [(0, h)]
+        if h * w <= 1 << 20:
+            ranges += [s for s in row_slabs(h, 4, 8 if jpeg else 1) if s[1] > s[0]]
+        for r0, r1 in ranges:
+            before = launch_counts()
+            got = K.grid_dual(*args, r0, r1, png, jpeg)
+            torch.cuda.synchronize()
+            assert launch_counts(before) == (1, 0, 0)
+            want = K.grid_dual_plain(tiles, prev, lq, cq, r0, r1, png, jpeg)
+            for a, b in zip(got, want, strict=True):
+                assert torch.equal(a.cpu(), b), (png, jpeg, r0, r1)
+
+
+@pytest.mark.parametrize("tw,offset,variant", [(64, 0, "vec16"), (10, 0, "words"),
+                                               (64, 4, "words"), (64, 1, "composition")])
+def test_grid_dual_variants_on_the_card(cuda, tw, offset, variant):
+    """The dispatch on shape: 16 B and 4 B copies launch grid_dual; a tile
+    stack off a 4 B boundary takes the composition (filter_select and
+    fdct_quant, no grid_dual). Each equals the plain step."""
+    from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
+    from image_stitch_tpu_torch.ops import fused
+    from image_stitch_tpu_torch.testing import grid_tiles
+
+    shape = (2, 4, 16, tw)
+    tiles = torch.from_numpy(grid_tiles(shape, seed=tw + offset))
+    store = torch.zeros(tiles.numel() + 32, dtype=torch.uint8, device=cuda)
+    t = store[offset:offset + tiles.numel()].view(*shape, 4)
+    t.copy_(tiles.to(cuda))
+    prev = torch.zeros(4 * tw * 4, dtype=torch.uint8)
+    lq, cq = (torch.from_numpy(q) for q in quality_scaled_tables(85))
+    assert K.GRID_DUAL_VARIANTS[K.grid_dual_variant(tw, t.data_ptr())] == variant
+    before = launch_counts()
+    got = fused.fused_grid_dual_step(t, prev.to(cuda), lq.to(cuda), cq.to(cuda))
     torch.cuda.synchronize()
-    for p, o, s in zip(plain, one, sharded):
-        assert s.device == cuda
-        assert torch.equal(o.cpu(), p) and torch.equal(s.cpu(), p)
+    assert launch_counts(before) == ((0, 1, 1) if variant == "composition" else (1, 0, 0))
+    want = fused.fused_grid_dual_step(tiles, prev, lq, cq)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_fused_steps_launch_grid_dual_once(cuda):
+    """On a CUDA tile stack each fused step is one grid_dual launch, with no
+    filter_select or fdct_quant launch; its ``*_plain`` composition
+    launches those two, and both equal the step on the CPU."""
+    from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
+    from image_stitch_tpu_torch.ops import fused
+    from image_stitch_tpu_torch.testing import grid_tiles
+
+    tiles = torch.from_numpy(grid_tiles((2, 4, 64, 64), seed=5))
+    prev = torch.from_numpy(np.random.default_rng(5).integers(0, 256, 1024, dtype=np.uint8))
+    lq, cq = (torch.from_numpy(q) for q in quality_scaled_tables(85))
+    cpu = {"png": (tiles, prev), "jpeg": (tiles, lq, cq), "dual": (tiles, prev, lq, cq)}
+    for name, args in cpu.items():
+        on_card = [a.to(cuda) for a in args]
+        want = getattr(fused, f"fused_grid_{name}_step")(*args)
+        before = launch_counts()
+        got = getattr(fused, f"fused_grid_{name}_step")(*on_card)
+        torch.cuda.synchronize()
+        assert launch_counts(before) == (1, 0, 0), name
+        before = launch_counts()
+        composed = getattr(fused, f"fused_grid_{name}_step_plain")(*on_card)
+        torch.cuda.synchronize()
+        n = (name != "jpeg", name != "png")
+        assert launch_counts(before) == (0, int(n[0]), int(n[1])), name
+        for a, b, c in zip(got, composed, want, strict=True):
+            assert torch.equal(a.cpu(), c) and torch.equal(b.cpu(), c)
 
 
 def test_mesh_jpeg_tiles_match_host(cuda):

@@ -66,8 +66,8 @@ def test_port_files_are_listed():
 
 # The kernels' sources: each .cu with the .cuh whose bodies the host shim
 # shares.
-KERNEL_SOURCES = ("composite", "fdct_quant", "filter", "idct", "layout", "pack_merge", "symbols",
-                  "ycc")
+KERNEL_SOURCES = ("composite", "fdct_quant", "filter", "grid_dual", "idct", "layout", "pack_merge",
+                  "symbols", "ycc")
 
 
 def test_kernel_sources_are_listed():
