@@ -1613,8 +1613,9 @@ def device_profile(opts: dict, dev: torch.device) -> dict:
         t0 = time.perf_counter()
         image_stitch_tpu_torch.concat_to_buffer(opts, device=dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # The port's spans show on the device too, as user annotations: not work.
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     lead = sum(r[2] for r in rows if "spin_kernel" in r[0])
     rows = [r for r in rows if "spin_kernel" not in r[0]]
     rows.sort(key=lambda r: -r[1])

@@ -50,6 +50,7 @@ reference :927-1003), including:
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Iterator, Mapping, Sequence
 
 import numpy as np
@@ -90,6 +91,7 @@ from .types import (
     image_header_to_png_header,
 )
 from .utils import PNG_SIGNATURE, scanline_byte_length
+from .utils.observability import JobPool, PipelineStats, next_job, profiled, span, traced
 
 
 def _to_host(band) -> np.ndarray:
@@ -191,6 +193,7 @@ class RowSource:
         # with per-input error attribution intact.
         self._group_provider = group_provider
         self._decoder = decoder
+        self._span_name = f"decode.{getattr(decoder, 'format', 'input')}"
         self._band_height = band_height
         # The band iterator is created lazily for grouped tiles (the
         # group path normally never touches it); generators only run on
@@ -230,6 +233,10 @@ class RowSource:
         return f"at source row {self.rows_served + 1}"
 
     def _pull(self) -> bool:
+        with span(self._span_name):
+            return self._pull_rows()
+
+    def _pull_rows(self) -> bool:
         if self._group_provider is not None:
             provider, self._group_provider = self._group_provider, None
             converted = provider()
@@ -384,11 +391,8 @@ class TorchStreamingConcatenator:
         name = self.options.backend
         self.backend = name if name == "auto" else resolve_backend_name(name)
         self.options.validate()
-        from .utils.observability import PipelineStats
-
-        # Live telemetry for the run (band/pixel/byte counters, stage
-        # timings, streaming-efficiency check). SURVEY §5: first-class here,
-        # absent in the reference.
+        # Live telemetry for the run (band/pixel/byte counters; a traced
+        # run's spans). SURVEY §5: first-class here, absent in the reference.
         self.stats = PipelineStats()
         self._pool = None  # host_threads decode workers (lazy)
         self._device_arg = device
@@ -436,11 +440,7 @@ class TorchStreamingConcatenator:
         if n <= 1:
             return None
         if self._pool is None:
-            from concurrent.futures import ThreadPoolExecutor
-
-            self._pool = ThreadPoolExecutor(
-                max_workers=n, thread_name_prefix="stitch-host"
-            )
+            self._pool = JobPool(max_workers=n, thread_name_prefix="stitch-host")
         return self._pool
 
     # ------------------------------------------------------------------ #
@@ -461,7 +461,16 @@ class TorchStreamingConcatenator:
 
     def stream(self) -> Iterator[bytes]:
         """Two-pass streaming generator (reference: stream(),
-        image-concat-core.ts:927-1003)."""
+        image-concat-core.ts:927-1003). Traced when a torch profiler records
+        at the call (utils/observability.py)."""
+        start = time.perf_counter_ns()
+        job = next_job()
+        if not profiled():
+            return self._stream()
+        self.stats.job = job
+        return traced(job, self._stream(), start)
+
+    def _stream(self) -> Iterator[bytes]:
         opts = self.options
         inputs = opts.inputs
         if not isinstance(inputs, (list, tuple)):
@@ -805,34 +814,39 @@ class TorchStreamingConcatenator:
 
         pending = None  # lookahead: band N+1 decodes while N encodes
         for band_idx, (band_y0, h) in enumerate(band_specs):
-            if band_idx and band_idx % 16 == 0:
-                trim_malloc()  # keep RSS at the live set, not the high-water
+            # Only band 0 makes its plan here; every later one was made ahead.
             plan = pending if pending is not None else make_plan(band_y0, h)
             pending = None
+            trim = band_idx and band_idx % 16 == 0  # keep RSS at the live set
             if plan[0] == "device":
+                if trim:
+                    trim_malloc()
                 band_dev = dev_band(plan[1], h)
                 if band_idx + 1 < len(band_specs):
                     pending = make_plan(*band_specs[band_idx + 1])
                 yield band_dev
                 continue
-            active, futs = plan[1], plan[2]
-            canvas = np.empty((h, width, 4), dtype=dtype)
-            if not covered_rows[band_y0 : band_y0 + h].all():
-                canvas[:] = bg
-            for i, (image_idx, x0, img_w, seg_y0, seg_y1) in enumerate(active):
-                if dev_for(image_idx) is not None:
-                    rows = dev_rows(image_idx, seg_y0, seg_y1)
-                elif futs is not None and futs[i] is not None:
-                    rows = futs[i].result()
-                else:
-                    rows = sources[image_idx].take(seg_y1 - seg_y0)
-                canvas[seg_y0 - band_y0 : seg_y1 - band_y0, x0 : x0 + img_w] = rows
-            # Submit the NEXT band's pulls before yielding: the consumer
-            # encodes this band (native entropy/deflate release the GIL)
-            # while the workers decode ahead. Bounded lookahead: one
-            # band of rows per source.
-            if band_idx + 1 < len(band_specs):
-                pending = make_plan(*band_specs[band_idx + 1])
+            with span("assemble"):
+                if trim:
+                    trim_malloc()
+                active, futs = plan[1], plan[2]
+                canvas = np.empty((h, width, 4), dtype=dtype)
+                if not covered_rows[band_y0 : band_y0 + h].all():
+                    canvas[:] = bg
+                for i, (image_idx, x0, img_w, seg_y0, seg_y1) in enumerate(active):
+                    if dev_for(image_idx) is not None:
+                        rows = dev_rows(image_idx, seg_y0, seg_y1)
+                    elif futs is not None and futs[i] is not None:
+                        rows = futs[i].result()
+                    else:
+                        rows = sources[image_idx].take(seg_y1 - seg_y0)
+                    canvas[seg_y0 - band_y0 : seg_y1 - band_y0, x0 : x0 + img_w] = rows
+                # Submit the NEXT band's pulls before yielding: the consumer
+                # encodes this band (native entropy/deflate release the GIL)
+                # while the workers decode ahead. Bounded lookahead: one
+                # band of rows per source.
+                if band_idx + 1 < len(band_specs):
+                    pending = make_plan(*band_specs[band_idx + 1])
             yield canvas
 
     # -------------------------- positioned mode ------------------------ #
@@ -1049,6 +1063,12 @@ class TorchStreamingConcatenator:
             content_hint="filtered_png",
         )
 
+        def idat() -> bytes:
+            with span("png.idat") as s:
+                chunk = serialize_chunk(create_idat(chunks.pop(0)))
+                s.n = len(chunk)
+            return chunk
+
         def emit(pending) -> Iterator[bytes]:
             ftypes, filtered, _last = backend.png_filter_band_wait(pending)
             h = filtered.shape[0]
@@ -1057,7 +1077,7 @@ class TorchStreamingConcatenator:
             interleaved[:, 1:] = filtered
             deflator.push(interleaved.tobytes())
             while chunks:
-                yield serialize_chunk(create_idat(chunks.pop(0)))
+                yield idat()
 
         # One-band lookahead: submit filter-select for band N (device compute
         # + async readback), then deflate band N-1 on the host. The filter
@@ -1086,7 +1106,7 @@ class TorchStreamingConcatenator:
             yield from emit(pending)
         deflator.finish()
         while chunks:
-            yield serialize_chunk(create_idat(chunks.pop(0)))
+            yield idat()
 
     def _encode_jpeg(
         self, bands: Iterator[np.ndarray | torch.Tensor], out_header: PngHeader

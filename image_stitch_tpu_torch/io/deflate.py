@@ -12,6 +12,8 @@ from __future__ import annotations
 import zlib
 from typing import Callable, Iterable, Iterator
 
+from ..utils.observability import span
+
 DEFAULT_LEVEL = 6  # reference: streaming-deflate.ts:55, image-concat-core.ts:342
 DEFAULT_MAX_BATCH = 1 * 1024 * 1024  # reference: image-concat-core.ts:336
 
@@ -82,6 +84,10 @@ class StreamingDeflator:
     def push(self, data: bytes | memoryview) -> None:
         if self._finished:
             raise RuntimeError("Deflator already finished")
+        with span("png.deflate", len(data)):
+            self._push(data)
+
+    def _push(self, data: bytes | memoryview) -> None:
         if self._native is not None:
             self._native.compress(data)
         else:
@@ -114,6 +120,10 @@ class StreamingDeflator:
     def finish(self) -> None:
         if self._finished:
             return
+        with span("png.deflate"):
+            self._finish()
+
+    def _finish(self) -> None:
         if self._native is not None:
             self._finished = True
             for out in self._native.finish_parts():

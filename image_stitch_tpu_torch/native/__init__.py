@@ -15,6 +15,8 @@ import os
 
 import numpy as np
 
+from ..utils.observability import span
+
 _SRC = os.path.join(os.path.dirname(__file__), "stitchnative.cpp")
 _LIB = None
 _LIB_TRIED = False
@@ -374,6 +376,11 @@ def defilter_band_native(
     lib = get_native_lib()
     if lib is None:
         return None
+    with span("decode.defilter"):
+        return _defilter_band(lib, filter_types, rows, previous_row, bpp, in_place)
+
+
+def _defilter_band(lib, filter_types, rows, previous_row, bpp, in_place):
     if in_place and rows.flags["C_CONTIGUOUS"] and rows.flags["WRITEABLE"] and rows.dtype == np.uint8:
         out = rows
     else:
@@ -543,6 +550,11 @@ def defilter_units_native(
     lib = get_native_lib()
     if lib is None:
         return None
+    with span("decode.defilter"):
+        return _defilter_units(lib, units, rowbytes, bpp, previous_row)
+
+
+def _defilter_units(lib, units, rowbytes, bpp, previous_row):
     units = np.ascontiguousarray(units, dtype=np.uint8)
     h = units.shape[0]
     prev = (
@@ -938,6 +950,11 @@ class NativeInflater:
         output-limited calls resume exactly where they stopped."""
         if self.finished or not len(out):
             return 0
+        with span("decode.inflate") as s:
+            s.n = n = self._drain(out)
+        return n
+
+    def _drain(self, out: np.ndarray) -> int:
         lib = self._lib
         # argtypes declare c_void_p, so raw address ints work — cheaper
         # than data_as (which constructs a ctypes pointer per call; this

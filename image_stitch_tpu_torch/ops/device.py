@@ -20,6 +20,7 @@ import torch
 
 from ..errors import StitchError
 from ..parallel.mesh import Mesh, band_rows, row_slabs
+from ..utils.observability import span
 from .counters import EncodeCounters
 from .kernels import fdct_quant, filter_select, png_bytes
 
@@ -108,12 +109,14 @@ class TorchBackend:
             if a.device.type != self.device.type:
                 raise ValueError(f"tensor on {a.device}, the backend runs on {self.device}")
             return a.contiguous()
-        a = np.ascontiguousarray(a)
-        # Upload 16-bit samples as their bytes: torch has few uint16 ops.
-        host = torch.from_numpy(a.view(np.uint8) if a.dtype == np.uint16 else a)
-        if self.device.type == "cuda":
-            host = host.pin_memory().to(self.device, non_blocking=True)
-        return host.view(torch.uint16) if a.dtype == np.uint16 else host
+        with span("png.upload") as s:
+            a = np.ascontiguousarray(a)
+            s.n = a.nbytes
+            # Upload 16-bit samples as their bytes: torch has few uint16 ops.
+            host = torch.from_numpy(a.view(np.uint8) if a.dtype == np.uint16 else a)
+            if self.device.type == "cuda":
+                host = host.pin_memory().to(self.device, non_blocking=True)
+            return host.view(torch.uint16) if a.dtype == np.uint16 else host
 
     def _to_host(self, t: torch.Tensor) -> torch.Tensor:
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -123,8 +126,12 @@ class TorchBackend:
         """Queue the filter select of ``canvas`` ((H, W, 4) uint8 or uint16,
         host array or tensor) after ``prev_row`` (the previous band's last
         raw row, host or device, or None at the image start)."""
-        if self.mesh is not None:
-            return self._filter_sharded(canvas, prev_row)
+        with span("png.submit"):
+            if self.mesh is not None:
+                return self._filter_sharded(canvas, prev_row)
+            return self._filter(canvas, prev_row)
+
+    def _filter(self, canvas, prev_row) -> PendingFilter:
         band = self._on_device(canvas)
         if band.ndim != 3 or band.dtype not in (torch.uint8, torch.uint16):
             raise TypeError(f"expected an (H, W, 4) uint8 or uint16 band, got "
@@ -192,8 +199,9 @@ class TorchBackend:
     @staticmethod
     def png_filter_band_wait(pending: PendingFilter) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(types (H,) uint8, filtered (H, N) uint8, last raw row (N,))."""
-        for done in pending.done:
-            done.synchronize()
+        with span("png.device_wait"):
+            for done in pending.done:
+                done.synchronize()
         return pending.types.numpy(), pending.filtered.numpy(), pending.last.numpy()
 
     def png_filter_band(self, canvas, prev_row) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

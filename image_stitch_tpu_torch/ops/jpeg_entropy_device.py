@@ -45,6 +45,7 @@ import torch
 from ..codecs.jpeg.huffman import BitPacker, HuffmanEncoder, interleave_mcus
 from ..codecs.jpeg.tables import ZIGZAG, huffman_lut
 from ..parallel.mesh import Mesh, ShardedBand, band_rows, row_slabs
+from ..utils.observability import span
 from .counters import EncodeCounters
 from .device import jpeg_quantize, jpeg_quantize_420
 from .kernels import group_layout, pack_merge, stream_fits_int32, symbol_streams
@@ -348,10 +349,13 @@ def entropy_pack_carried(yb, cbb, crb, luts: dict, prev_dc: torch.Tensor,
 
 def _stuff(payload: np.ndarray) -> bytes:
     """JPEG byte stuffing: a 0x00 after every 0xFF."""
-    ff = np.nonzero(payload == 0xFF)[0]
-    if len(ff):
-        payload = np.insert(payload, ff + 1, 0)
-    return payload.tobytes()
+    with span("jpeg.stuff") as s:
+        ff = np.nonzero(payload == 0xFF)[0]
+        if len(ff):
+            payload = np.insert(payload, ff + 1, 0)
+        out = payload.tobytes()
+        s.n = len(out)
+    return out
 
 
 def _words_to_bytes(words: torch.Tensor) -> bytes:
@@ -440,10 +444,14 @@ class TorchJpegEncoder:
         memory so that it is queued and does not wait."""
         if not isinstance(band, np.ndarray) or band.dtype != np.uint8 or band.ndim != 3:
             raise TypeError("TorchJpegEncoder takes an (H, W, C) uint8 ndarray or tensor")
-        host = torch.from_numpy(np.ascontiguousarray(band[..., :3]))
-        if self.device.type == "cuda":
-            return host.pin_memory().to(self.device, non_blocking=True)
-        return host.to(self.device)
+        with span("jpeg.upload") as s:
+            with span("jpeg.upload.strip"):
+                host = torch.from_numpy(np.ascontiguousarray(band[..., :3]))
+            s.n = host.numel()
+            with span("jpeg.upload.pin"):
+                if self.device.type == "cuda":
+                    return host.pin_memory().to(self.device, non_blocking=True)
+                return host.to(self.device)
 
     def on_device(self, band) -> torch.Tensor:
         """``band`` as an (H, W, C >= 3) uint8 tensor on the encoder's
@@ -476,6 +484,10 @@ class TorchJpegEncoder:
         """Queue one band (rows a multiple of the MCU height, width padded
         to whole MCUs), a host array or a tensor on the encoder's device (or
         a ``ShardedBand`` under a mesh); returns a handle for ``wait``."""
+        with span("jpeg.submit"):
+            return self._submit(band)
+
+    def _submit(self, band):
         band = unpack_rgba(band)
         if self.mesh is not None and self._restart_rows:
             if not isinstance(band, (torch.Tensor, ShardedBand)):
@@ -604,7 +616,8 @@ class TorchJpegEncoder:
                 self.counters.host_fallback_bands += 1
                 out += self._host_fallback_groups(blocks, n_groups)
                 continue
-            bits_h = bits.cpu().numpy().astype(np.int64)
+            with span("jpeg.device_wait", bits.numel() * bits.element_size()):
+                bits_h = bits.cpu().numpy().astype(np.int64)
             max_bb = int(max_bb)
             used = (bits_h + 31) // 32
             total_used = int(used.sum())
@@ -677,10 +690,15 @@ class TorchJpegEncoder:
     def wait(self, handle) -> bytes:
         """Entropy-coded bytes of a submitted band (stuffed; the carried
         stream's last partial byte is held back for the next band)."""
+        with span("jpeg.wait"):
+            return self._wait(handle)
+
+    def _wait(self, handle) -> bytes:
         if handle[0] == "groups":
             return self._wait_groups(handle[1])
         _, words, total_bits, cap_words, max_bb, blocks, prev_dc_in, packed_lw = handle
-        total_bits = int(total_bits)
+        with span("jpeg.device_wait", total_bits.element_size()):
+            total_bits = int(total_bits)
         if words is None:
             # The band's start bits could pass 2^31: no pack ran.
             self.counters.host_fallback_bands += 1

@@ -5,22 +5,56 @@ analog is the test-only memory sampler, tests/utils/memory-monitor.ts:77-126).
 The port makes it first-class:
 
 - :func:`device_trace` wraps a region with ``torch.profiler`` so the
-  port's functions (Python stacks) and, on a card, its kernels and copies
-  show up in a Chrome trace (TensorBoard, Perfetto, chrome://tracing).
-- :class:`PipelineStats` counts bands, pixels, emitted bytes, and stage wall
-  time, and reproduces the reference's streaming-efficiency contract
-  (peak RSS <= factor x output bytes, memory-monitor.ts:213-234) as a
-  runtime check rather than a test-only one.
-- A ``logger`` injection point mirrors the reference's clip-warning logger
-  (image-concat-core.ts:1127-1132).
+  port's functions (Python stacks), its spans and, on a card, its kernels
+  and copies show up in one Chrome trace (TensorBoard, Perfetto,
+  chrome://tracing).
+- :func:`span` marks a piece of a job's host work: decode, assembly, each
+  encoder's submit, wait and the pieces between. A job is traced when a
+  torch profiler records at its start (``device_trace``, an operator's own
+  ``torch.profiler``); untraced, a span is one check of a module global and
+  records nothing. Traced, each span is also a named range in the
+  profiler's trace (torch's fast ``RecordFunction``, else
+  ``record_function``), and a :class:`Span` record in :data:`RECORDER`,
+  stamped with ``time.perf_counter_ns()``.
+- :class:`PipelineStats` counts bands, pixels and emitted bytes, and gives
+  a traced job's self time per span name.
+
+The spans of a job (``n``: a count of bytes, where there is one):
+
+- ``job``: the call of ``stream()`` to its exhaustion, one record; the
+  parent of the spans the job opens on its own thread; ``n`` bytes out.
+- ``decode.png``: one tile's next rows (``RowSource._pull``), the parse and
+  chunk CRCs included; under it ``decode.inflate``
+  (``NativeInflater.drain_into``, ``n`` bytes out) and ``decode.defilter``
+  (``defilter_units_native``, ``defilter_band_native``).
+- ``assemble``: a host band of the grid, from its canvas to its yield: the
+  tile pulls and ``trim_malloc``.
+- ``jpeg.submit`` (``TorchJpegEncoder.submit``), under it ``jpeg.upload``
+  (``n`` bytes onto the device) with ``jpeg.upload.strip`` (the RGB copy)
+  and ``jpeg.upload.pin`` (the pinned copy and the queued transfer);
+  ``jpeg.wait`` (``TorchJpegEncoder.wait``), under it ``jpeg.device_wait``
+  (the first blocking read-back, ``n`` bytes read) and ``jpeg.stuff``
+  (``n`` bytes out).
+- ``png.submit`` (``TorchBackend.png_filter_band_async``), under it
+  ``png.upload`` (``n`` bytes onto the device); ``png.device_wait`` (the
+  event syncs of ``png_filter_band_wait``); ``png.deflate``
+  (``StreamingDeflator.push`` and ``finish``, ``n`` bytes in); ``png.idat``
+  (an IDAT chunk framed, its CRC included, ``n`` bytes out).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from dataclasses import dataclass, field
+from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Iterable, Iterator, NamedTuple
+
+CAP = 1 << 18  # records the recorder keeps; later ones are counted in ``dropped``
 
 
 @contextlib.contextmanager
@@ -29,8 +63,9 @@ def device_trace(log_dir: str | None = None):
     STITCH_TPU_TRACE_DIR is unset.
 
     Records CPU activity with Python stacks, and CUDA activity (kernels,
-    copies, memsets) when a card is present; on exit writes one Chrome
-    trace, a ``*.pt.trace.json`` file, into ``log_dir``
+    copies, memsets) when a card is present; jobs started inside the region
+    are traced, so their spans show too. On exit writes one Chrome trace, a
+    ``*.pt.trace.json`` file, into ``log_dir``
     (``tensorboard_trace_handler``). A profiler that cannot start raises."""
     log_dir = log_dir or os.environ.get("STITCH_TPU_TRACE_DIR")
     if not log_dir:
@@ -47,68 +82,240 @@ def device_trace(log_dir: str | None = None):
         yield
 
 
-def _rss_bytes() -> int:
+# --------------------------------------------------------------------------- #
+# Spans
+# --------------------------------------------------------------------------- #
+
+
+class Span(NamedTuple):
+    """One closed span. ``start``/``end`` are ``time.perf_counter_ns()``;
+    ``parent`` is the id of the span that was innermost open on the same
+    thread when it opened (a job's ``job`` span on the job's thread, None
+    on another thread); ``job`` the id of the job it worked for."""
+
+    name: str
+    start: int
+    end: int
+    id: int
+    parent: int | None
+    job: int
+    thread: int
+    n: int
+
+
+class Recorder:
+    """Closed spans in memory, in the order they closed: at most ``cap``;
+    past it a span is counted in ``dropped`` and not kept."""
+
+    def __init__(self, cap: int = CAP):
+        self.cap = cap
+        self.records: list[Span] = []
+        self.dropped = 0
+        self._lock = threading.Lock()
+
+    def add(self, record: Span) -> None:
+        with self._lock:
+            if len(self.records) < self.cap:
+                self.records.append(record)
+            else:
+                self.dropped += 1
+
+    def spans(self) -> list[Span]:
+        with self._lock:
+            return list(self.records)
+
+    def clear(self) -> None:
+        with self._lock:
+            self.records = []
+            self.dropped = 0
+
+
+RECORDER = Recorder()
+
+
+class _ThreadState(threading.local):
+    def __init__(self):
+        self.job: int | None = None   # the job this thread works for now
+        self.open: list[int] = []     # ids of the spans open here, innermost last
+
+
+_thread = _ThreadState()
+_ids = itertools.count(1)
+_job_ids = itertools.count(1)
+_live = 0                      # traced jobs not yet exhausted or closed
+_live_lock = threading.Lock()
+_record_function = None        # torch's range, bound when a job is traced
+
+
+class _Off:
+    """The span of untraced work: records nothing, keeps nothing."""
+
+    __slots__ = ()
+    n = property(lambda self: 0, lambda self, value: None)
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+class _On:
+    __slots__ = ("name", "n", "job", "id", "parent", "start", "_range")
+
+    def __init__(self, name: str, n: int, job: int):
+        self.name, self.n, self.job = name, n, job
+
+    def __enter__(self) -> "_On":
+        opened = _thread.open
+        self.parent = opened[-1] if opened else None
+        self.id = next(_ids)
+        opened.append(self.id)
+        self._range = _record_function(self.name)
+        self._range.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = time.perf_counter_ns()
+        self._range.__exit__(*exc)
+        _thread.open.pop()
+        RECORDER.add(Span(self.name, self.start, end, self.id, self.parent, self.job,
+                          threading.get_ident(), self.n))
+        return False
+
+
+def span(name: str, n: int = 0):
+    """A context manager timing a piece of the current job's work; ``n``
+    (bytes) may be given here or set on the value it binds. Records only
+    inside a traced job. Open and close it within one synchronous call:
+    never across a ``yield``."""
+    if not _live:
+        return _OFF
+    job = _thread.job
+    if job is None:
+        return _OFF
+    return _On(name, n, job)
+
+
+def next_job() -> int:
+    return next(_job_ids)
+
+
+def profiled() -> bool:
+    """Whether a torch profiler records in this process now."""
+    from torch.autograd import profiler
+
+    return bool(profiler._is_profiler_enabled)
+
+
+def traced(job: int, chunks: Iterator[bytes], start: int) -> Iterator[bytes]:
+    """``chunks`` as the work of ``job``: the job is current on this thread
+    during each resumption of ``chunks`` and not across a ``yield``, so
+    interleaved jobs keep their own ids. At exhaustion one ``job`` span
+    from ``start`` (``perf_counter_ns`` at the call) is recorded."""
+    global _live, _record_function
+    from torch._C import _profiler
+    from torch.autograd.profiler import record_function
+
+    # The fast RecordFunction makes the same named range in the profiler's
+    # trace as record_function at a third of the cost: a span took 6.9 us
+    # against 17.6 us on an H100 machine's host under the profiler.
+    _record_function = getattr(_profiler, "_RecordFunctionFast", record_function)
+    root, out = next(_ids), 0
+    with _live_lock:
+        _live += 1
     try:
-        with open(f"/proc/{os.getpid()}/statm") as f:
-            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
-    except OSError:  # pragma: no cover - non-Linux
-        return 0
+        while True:
+            prev = _thread.job
+            _thread.job = job
+            _thread.open.append(root)
+            try:
+                chunk = next(chunks)
+            except StopIteration:
+                break
+            finally:
+                _thread.open.pop()
+                _thread.job = prev
+            out += len(chunk)
+            yield chunk
+        RECORDER.add(Span("job", start, time.perf_counter_ns(), root, None, job,
+                          threading.get_ident(), out))
+    finally:
+        chunks.close()
+        with _live_lock:
+            _live -= 1
+
+
+class JobPool(ThreadPoolExecutor):
+    """A thread pool whose tasks work for the job that submitted them."""
+
+    def submit(self, fn, /, *args, **kwargs):
+        job = _thread.job if _live else None
+        if job is None:
+            return super().submit(fn, *args, **kwargs)
+
+        def run():
+            prev = _thread.job
+            _thread.job = job
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _thread.job = prev
+
+        return super().submit(run)
+
+
+def spans() -> list[Span]:
+    """The spans the recorder keeps."""
+    return RECORDER.spans()
+
+
+def clear() -> None:
+    RECORDER.clear()
+
+
+def self_seconds(records: Iterable[Span]) -> dict[str, float]:
+    """Seconds by span name, each span's duration less its children's."""
+    records = list(records)
+    children: dict[int, int] = defaultdict(int)
+    for r in records:
+        if r.parent is not None:
+            children[r.parent] += r.end - r.start
+    out: dict[str, float] = defaultdict(float)
+    for r in records:
+        out[r.name] += (r.end - r.start - children[r.id]) / 1e9
+    return dict(out)
 
 
 @dataclass
 class PipelineStats:
-    """Live counters for one streaming run."""
+    """Counters of one streaming run; ``job`` is its id in the recorder when
+    the run was traced."""
 
     bands: int = 0
     pixels: int = 0
     output_bytes: int = 0
-    started_at: float = field(default_factory=time.perf_counter)
-    baseline_rss: int = field(default_factory=_rss_bytes)
-    peak_rss: int = 0
-    stage_seconds: dict = field(default_factory=dict)
+    job: int | None = None
 
     def record_band(self, h: int, w: int) -> None:
         self.bands += 1
         self.pixels += h * w
-        self.peak_rss = max(self.peak_rss, _rss_bytes())
 
     def record_output(self, n: int) -> None:
         self.output_bytes += n
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + (
-                time.perf_counter() - t0
-            )
-
-    @property
-    def elapsed(self) -> float:
-        return time.perf_counter() - self.started_at
-
-    @property
-    def megapixels_per_second(self) -> float:
-        return self.pixels / 1e6 / max(self.elapsed, 1e-9)
-
-    @property
-    def peak_rss_delta(self) -> int:
-        return max(0, self.peak_rss - self.baseline_rss)
-
-    def check_streaming_efficiency(self, factor: float = 15.0, floor: int = 64 << 20) -> bool:
-        """The reference's invariant: peak RSS delta <= factor x output bytes
-        (memory-monitor.ts:213-234), with an allocator-noise floor."""
-        return self.peak_rss_delta <= max(factor * self.output_bytes, floor)
-
     def report(self) -> dict:
+        """Counts, and a traced run's self seconds by span name."""
+        stages = {}
+        if self.job is not None:
+            stages = self_seconds(r for r in spans() if r.job == self.job)
         return {
             "bands": self.bands,
             "megapixels": round(self.pixels / 1e6, 3),
             "output_bytes": self.output_bytes,
-            "seconds": round(self.elapsed, 4),
-            "mp_per_s": round(self.megapixels_per_second, 2),
-            "peak_rss_delta_mb": round(self.peak_rss_delta / 1e6, 1),
-            "stages": {k: round(v, 4) for k, v in self.stage_seconds.items()},
+            "stages": {k: round(v, 6) for k, v in stages.items()},
         }
