@@ -979,8 +979,9 @@ def tracing():
     tier's whole-tile JPEG decode and the JPEG encoder's encode_band to
     record into TRACE; returns the function that unwraps them."""
     from image_stitch_tpu_torch.codecs.jpeg import decoder as jpeg_decoder
-    from image_stitch_tpu_torch.codecs.jpeg.device_decoder import BandStaging, DeviceJpegDecoder
+    from image_stitch_tpu_torch.codecs.jpeg.device_decoder import DeviceJpegDecoder
     from image_stitch_tpu_torch.codecs.jpeg.encoder import TorchStreamingJpegEncoder
+    from image_stitch_tpu_torch.ops.staging import BandStaging
 
     real = (DeviceJpegDecoder.decode_band, jpeg_decoder.decode_jpeg_to_rgba,
             TorchStreamingJpegEncoder.encode_band, BandStaging.upload)
@@ -1048,7 +1049,9 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
     out = image_stitch_tpu_torch.concat_to_buffer(opts, device=dev, counters=counters)
     secs = time.perf_counter() - t0
     launches = {k: getattr(K, k).launches for k in COUNTED}
-    singles, uploads = TRACE["decode_band"], TRACE["uploads"]
+    # The JPEG encoder stages its host bands through the same ring: the
+    # decode's uploads are the rest.
+    singles, uploads = TRACE["decode_band"], TRACE["uploads"] - counters.staged_uploads
     kinds = {k: TRACE["encoder_bands"].count(k) for k in ("card", "host")}
     host_tiles = TRACE["host_tiles"]
     for k in must_launch:
@@ -1107,7 +1110,7 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
             ref_secs = time.perf_counter() - t0
         finally:
             del os.environ["STITCH_TPU_DEVICE_DECODE"]
-        if off.decode_tile_bands or TRACE["decode_band"] or TRACE["uploads"]:
+        if off.decode_tile_bands or TRACE["decode_band"] or TRACE["uploads"] - off.staged_uploads:
             fail(f"{name}: the device tier decoded with STITCH_TPU_DEVICE_DECODE=0")
         if ref != out:
             fail(f"{name}: output ({len(out)} B) != the host-decode run's ({len(ref)} B)")
@@ -1418,10 +1421,11 @@ def jpeg_kernel_timing(tiles_jpeg: list[bytes], dev: torch.device) -> tuple[dict
     band, decoded on the card. Returns (times, bytes each must move, max
     |kernel - plain| on these inputs)."""
     from image_stitch_tpu_torch.codecs.jpeg.device_decoder import (
-        BandStaging, DeviceJpegDecoder, decode_tiles_band, stage_tiles_band)
+        DeviceJpegDecoder, decode_tiles_band, stage_tiles_band)
     from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
     from image_stitch_tpu_torch.ops import jpeg_entropy_device as E
     from image_stitch_tpu_torch.ops import kernels as K
+    from image_stitch_tpu_torch.ops.staging import BandStaging
 
     t, moved = {}, {}
     y0, y1 = BAND_ROWS, 2 * BAND_ROWS

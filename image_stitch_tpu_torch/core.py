@@ -739,7 +739,7 @@ class TorchStreamingConcatenator:
             tier's uploads, made when the first band needs it."""
             nonlocal ring
             if ring is None:
-                from .codecs.jpeg.device_decoder import BandStaging
+                from .ops.staging import BandStaging
 
                 ring = BandStaging(self.device)
             return ring

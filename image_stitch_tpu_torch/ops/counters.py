@@ -12,7 +12,10 @@ class EncodeCounters:
 
     JPEG (``TorchJpegEncoder``): bands submitted, on-device re-packs after
     an overflow, and bands coded on the host because they overflowed every
-    device budget. PNG (``ops.device.TorchBackend``): bands filtered.
+    device budget; host bands uploaded through its staging ring
+    (``ops.staging.BandStaging``), and the acquires of a ring slot whose
+    earlier copy was still in flight (the host waited for it). PNG
+    (``ops.device.TorchBackend``): bands filtered.
     Positioned compositing (``ops.composite_device.DeviceCompositor``):
     bands blended on the device, and bands replayed through the host oracle
     on an exact rational tie. JPEG tiles decoded by the device tier
@@ -29,6 +32,8 @@ class EncodeCounters:
     bands: int = 0
     repacks: int = 0
     host_fallback_bands: int = 0
+    staged_uploads: int = 0
+    staging_stalls: int = 0
     png_bands: int = 0
     composite_bands_on_device: int = 0
     composite_fallback_bands: int = 0

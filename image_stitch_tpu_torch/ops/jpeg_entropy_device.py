@@ -49,6 +49,7 @@ from ..utils.observability import span
 from .counters import EncodeCounters
 from .device import jpeg_quantize, jpeg_quantize_420
 from .kernels import group_layout, pack_merge, stream_fits_int32, symbol_streams
+from .staging import BandStaging
 
 # Packed-output budget in bits per pixel before the first band reports,
 # and its ceiling (the JAX package's values).
@@ -400,6 +401,13 @@ class TorchJpegEncoder:
 
     A rank-2 band is byte-packed RGBA (``unpack_rgba``) and is taken as its
     uint8 view.
+
+    A host band goes up as it lies, alpha and all: one copy into the next
+    buffer of the encoder's staging ring (``BandStaging``, made on the
+    first host band), then one queued copy to the device. Once ``submit``
+    returns, the caller may write over its array. The uploaded band is
+    dropped as soon as its quantize is queued, before the symbol slots are
+    allocated: the caching allocator reuses its block in stream order.
     """
 
     # Bucketed per-group capacity budgets in bits/px (the JAX package's
@@ -435,23 +443,30 @@ class TorchJpegEncoder:
         self._mcu_px = 16 if sampling == "420" else 8
         # Max group bits/px of recent bands: sizes the next submit's output.
         self._cap_recent = collections.deque(maxlen=4)
+        self._staging: BandStaging | None = None
 
     # ---- submit ------------------------------------------------------------
 
     def _upload(self, band: np.ndarray) -> torch.Tensor:
-        """Host (H, W, >=3) uint8 band -> (H, W, 3) on the device. Alpha is
-        dropped first (JPEG ignores it). A CUDA upload goes through pinned
-        memory so that it is queued and does not wait."""
-        if not isinstance(band, np.ndarray) or band.dtype != np.uint8 or band.ndim != 3:
-            raise TypeError("TorchJpegEncoder takes an (H, W, C) uint8 ndarray or tensor")
-        with span("jpeg.upload") as s:
-            with span("jpeg.upload.strip"):
-                host = torch.from_numpy(np.ascontiguousarray(band[..., :3]))
-            s.n = host.numel()
-            with span("jpeg.upload.pin"):
-                if self.device.type == "cuda":
-                    return host.pin_memory().to(self.device, non_blocking=True)
-                return host.to(self.device)
+        """Host (H, W, C >= 3) uint8 band -> the same (H, W, C) on the
+        device, contiguous: one copy into the next buffer of the staging
+        ring, one queued copy up. On the CPU the result is a view of that
+        buffer, good until the ring hands it out again."""
+        if (not isinstance(band, np.ndarray) or band.dtype != np.uint8 or band.ndim != 3
+                or band.shape[2] < 3):
+            raise TypeError("TorchJpegEncoder takes an (H, W, C >= 3) uint8 ndarray or tensor")
+        if self._staging is None:
+            self._staging = BandStaging(self.device)
+        ring = self._staging
+        h, w, _ = band.shape
+        with span("jpeg.upload", h * w * 3):
+            stalls = ring.stalls
+            slot, buf = ring.acquire(band.nbytes)
+            self.counters.staging_stalls += ring.stalls - stalls
+            with span("jpeg.upload.copy"):
+                np.copyto(buf[: band.nbytes].numpy().reshape(band.shape), band)
+            self.counters.staged_uploads += 1
+            return ring.upload(slot, band.nbytes).view(band.shape)
 
     def on_device(self, band) -> torch.Tensor:
         """``band`` as an (H, W, C >= 3) uint8 tensor on the encoder's
@@ -498,15 +513,20 @@ class TorchJpegEncoder:
         with self._on_shard(shard):
             dev_band = self.on_device(band)
             self.counters.bands += 1
-            if self._restart_rows:
-                return self._submit_groups(dev_band)
-            return self._submit_carried(dev_band, shard)
+            h, w = dev_band.shape[:2]
+            # The band is dropped once its quantize is queued (class doc).
+            if not self._restart_rows:
+                blocks = self._quantize(dev_band)
+                del dev_band
+                return self._submit_carried(blocks, h * w, shard)
+            pieces = [(self._quantize(dev_band[r0:r1]), n_groups, (r1 - r0) // n_groups * w)
+                      for r0, r1, n_groups, _ in self._group_pieces(h)]
+            del dev_band
+            return ("groups", [self._dispatch_pending(*p) for p in pieces])
 
-    def _submit_carried(self, dev_band: torch.Tensor, shard: int | None):
+    def _submit_carried(self, blocks, n_pixels: int, shard: int | None):
         prev_dc_in = self._prev_dc
-        n_pixels = dev_band.shape[0] * dev_band.shape[1]
         cap_words = max(64, (n_pixels * self._cap_bits_per_px + 31) // 32)
-        blocks = self._quantize(dev_band)
         words, total_bits, new_dc, max_bb, next_base = _pack_carried(
             *blocks, self._tables[self.device][2], prev_dc_in, self._bit_base, cap_words,
             self._local_words, self._sampling,
@@ -529,42 +549,49 @@ class TorchJpegEncoder:
                 return min(b, float(MAX_CAP_BITS_PER_PX))
         return float(MAX_CAP_BITS_PER_PX)
 
-    def _submit_groups(self, band):
-        """The band's whole restart groups go in one dispatch, or under a
-        mesh in one dispatch per shard that holds some; a final shorter
-        group (the tail of the image) in a second, on the first shard."""
+    def _group_pieces(self, rows: int):
+        """The dispatches of a band of ``rows`` rows: (first row, end row,
+        restart groups, mesh shard or None). The band's whole groups go in
+        one, or under a mesh in one per shard that holds some; a final
+        shorter group (the tail of the image) in another, on the first
+        shard."""
         ri = self._restart_rows
-        mcu_rows = band.shape[0] // self._mcu_px
+        mcu_rows = rows // self._mcu_px
         tail_rows = mcu_rows % ri
         main_rows = mcu_rows - tail_rows
         main_px = main_rows * self._mcu_px
-        handles = []
+        pieces = []
         if main_rows and self.mesh is None:
-            handles.append(self._dispatch_pending(band[:main_px], main_rows // ri))
+            pieces.append((0, main_px, main_rows // ri, None))
         elif main_rows:
             group_px = ri * self._mcu_px
             for i, (r0, r1) in enumerate(row_slabs(main_px, self.mesh.size, group_px)):
                 if r1 > r0:
-                    with self.mesh.shard(i) as dev:
-                        slab = band_rows(band, r0, r1, dev).contiguous()
-                        handles.append(self._dispatch_pending(slab, (r1 - r0) // group_px, i))
+                    pieces.append((r0, r1, (r1 - r0) // group_px, i))
         if tail_rows:
-            shard = None if self.mesh is None else 0
-            with self._on_shard(shard):
-                tail = band[main_px:] if self.mesh is None else band_rows(
-                    band, main_px, band.shape[0], self.device).contiguous()
-                handles.append(self._dispatch_pending(tail, 1, shard))
+            pieces.append((main_px, rows, 1, None if self.mesh is None else 0))
+        return pieces
+
+    def _submit_groups(self, band):
+        """Under a mesh: each dispatch's rows read onto its shard from the
+        band as it lies (a host array, a tensor or a ``ShardedBand``), then
+        quantized and packed there."""
+        handles = []
+        for r0, r1, n_groups, shard in self._group_pieces(band.shape[0]):
+            with self.mesh.shard(shard) as dev:
+                slab = band_rows(band, r0, r1, dev).contiguous()
+                handles.append(self._dispatch_pending(
+                    self._quantize(slab), n_groups, (r1 - r0) // n_groups * band.shape[1], shard))
         return ("groups", handles)
 
-    def _dispatch_pending(self, band: torch.Tensor, n_groups: int, shard: int | None = None):
-        """Quantize and pack ``n_groups`` equal restart groups in one
-        dispatch (the JAX package's batched dispatch, with a batch of 1), on
-        mesh shard ``shard`` when there is one."""
-        px_per_group = (band.shape[0] // n_groups) * band.shape[1]
+    def _dispatch_pending(self, blocks, n_groups: int, px_per_group: int,
+                          shard: int | None = None):
+        """Pack the quantized blocks of ``n_groups`` equal restart groups in
+        one dispatch (the JAX package's batched dispatch, with a batch of 1),
+        on mesh shard ``shard`` when there is one."""
         cap_words = max(64, (int(px_per_group * self._group_cap_bits_px()) + 31) // 32)
-        blocks = self._quantize(band)
         dense, group_bits, max_bb, _ = pack_groups_from_blocks(
-            *blocks, self._tables[band.device][2], n_groups, cap_words,
+            *blocks, self._tables[blocks[0].device][2], n_groups, cap_words,
             sampling=self._sampling, local_words=self._local_words,
         )
         if shard is not None:

@@ -30,8 +30,10 @@ The spans of a job (``n``: a count of bytes, where there is one):
 - ``assemble``: a host band of the grid, from its canvas to its yield: the
   tile pulls and ``trim_malloc``.
 - ``jpeg.submit`` (``TorchJpegEncoder.submit``), under it ``jpeg.upload``
-  (``n`` bytes onto the device) with ``jpeg.upload.strip`` (the RGB copy)
-  and ``jpeg.upload.pin`` (the pinned copy and the queued transfer);
+  (a host band staged and its copy to the device queued; ``n`` is the
+  band's colour bytes, H×W×3, though the staged copy carries the band as
+  it lies, with alpha: 4/3 of ``n`` for RGBA) with ``jpeg.upload.copy``
+  (the copy into the staging ring's buffer);
   ``jpeg.wait`` (``TorchJpegEncoder.wait``), under it ``jpeg.device_wait``
   (the first blocking read-back, ``n`` bytes read) and ``jpeg.stuff``
   (``n`` bytes out).

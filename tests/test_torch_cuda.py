@@ -629,6 +629,76 @@ def test_packed_band_on_the_card_matches_rgba(cuda, ri):
     assert got + b"".join(enc.finish()) == want
 
 
+# ------------------------------------------------------ staged uploads --- #
+
+
+def test_staged_host_bands_on_the_card(cuda, monkeypatch):
+    """Six 256 x 10000 RGBA host bands through the encoder's staging ring:
+    the host tier's bytes, each source array written over as soon as its
+    band is submitted, every quantize on the RGBA 16 B load variant. The
+    uploaded band is dropped before the symbol slots are allocated: given
+    the same bands as tensors that the caller holds, the peak of device
+    memory is higher by about a band."""
+    from image_stitch_tpu_torch.codecs.jpeg.encoder import (StreamingJpegEncoder,
+                                                            TorchStreamingJpegEncoder)
+
+    h, w, n = 256, 10000, 6
+    rng = np.random.default_rng(16)
+    ramp = np.linspace(0, 255, w, dtype=np.float32)[None, :]
+    bands = []
+    for i in range(n):
+        b = np.empty((h, w, 4), np.uint8)
+        b[..., 0] = ramp
+        b[..., 1] = np.linspace(0, 255, h, dtype=np.float32)[:, None] * (i + 1) / n
+        b[..., 2] = 128
+        b[..., 3] = 255
+        bands.append((b.astype(np.int16) + rng.integers(-6, 7, b.shape)).clip(0, 255)
+                     .astype(np.uint8))
+    ref = StreamingJpegEncoder(w, h * n, 85)
+    want = b"".join(b"".join(ref.encode_band(b)) for b in bands) + b"".join(ref.finish())
+
+    variants = []
+    real_variant = K.fdct_variant
+
+    def fdct_variant(ch, address):
+        variants.append(real_variant(ch, address))
+        return variants[-1]
+
+    monkeypatch.setattr(K, "fdct_variant", fdct_variant)
+
+    def encode(as_tensors: bool):
+        counters = image_stitch_tpu_torch.EncodeCounters()
+        torch.cuda.synchronize(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        enc = TorchStreamingJpegEncoder(w, h * n, 85, device=cuda, counters=counters)
+        out = []
+        for b in bands:
+            if as_tensors:
+                t = torch.from_numpy(b).to(cuda)
+                out += enc.encode_band(t)
+                del t
+            else:
+                src = b.copy()
+                out += enc.encode_band(src)
+                src[...] = 0
+        out += enc.finish()
+        torch.cuda.synchronize(cuda)
+        return b"".join(out), counters, torch.cuda.max_memory_allocated(cuda) - base
+
+    got, counters, peak = encode(False)
+    assert got == want
+    assert counters.staged_uploads == counters.bands == n
+    assert variants == [2] * n  # rgba_vec16
+    got_t, counters_t, peak_t = encode(True)
+    assert got_t == want and counters_t.staged_uploads == 0
+    print(f"staged uploads {counters.staged_uploads}, staging stalls {counters.staging_stalls}; "
+          f"device peak over the encode {peak / 1e6:.3f} MB from host bands, "
+          f"{peak_t / 1e6:.3f} MB from held tensors")
+    assert counters.staging_stalls <= counters.staged_uploads - 2
+    assert peak_t - peak > h * w * 4 // 2
+
+
 # ----------------------------------------------------------------- mesh --- #
 
 

@@ -97,8 +97,8 @@ from tests.utils.fixtures import png_from_array  # noqa: E402
 PARENTS = {
     "assemble": "job", "decode.png": "assemble", "decode.inflate": "decode.png",
     "decode.defilter": "decode.png",
-    "jpeg.submit": "job", "jpeg.upload": "jpeg.submit", "jpeg.upload.strip": "jpeg.upload",
-    "jpeg.upload.pin": "jpeg.upload", "jpeg.wait": "job", "jpeg.device_wait": "jpeg.wait",
+    "jpeg.submit": "job", "jpeg.upload": "jpeg.submit", "jpeg.upload.copy": "jpeg.upload",
+    "jpeg.wait": "job", "jpeg.device_wait": "jpeg.wait",
     "jpeg.stuff": "jpeg.wait",
     "png.submit": "job", "png.upload": "png.submit", "png.device_wait": "job",
     "png.deflate": "job", "png.idat": "job",
