@@ -20,6 +20,7 @@ import numpy as np
 
 from ...errors import StitchError
 from ...types import DecoderOptions, ImageHeader
+from ...utils.observability import span
 from .parser import parse_jpeg_header
 
 DEFAULT_BAND_HEIGHT = 256
@@ -173,7 +174,8 @@ class JpegDecoder:
             try:
                 from .device_decoder import DeviceJpegDecoder
 
-                cand = DeviceJpegDecoder(self._data, device)
+                with span("decode.jpeg.open", len(self._data)):
+                    cand = DeviceJpegDecoder(self._data, device)
                 hdr = self.get_header()
                 if cand.safe and (cand.width, cand.height) == (
                     hdr.width, hdr.height

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ...errors import StitchError
+from ...ops.resolve import resolve_device
 from ...ops.kernels import (
     IDCT_INT32_MAX_DEQ,
     StagedTable,
@@ -43,6 +44,7 @@ from ...ops.kernels import (
     ycc_tile_table,
 )
 from ...ops.staging import BandStaging
+from ...utils.observability import span
 from .owned_decoder import decode_coefficients
 from .tables import ZIGZAG
 
@@ -77,10 +79,11 @@ class DeviceJpegDecoder:
     streams (DC accumulation past legal baseline's 2047) get there."""
 
     def __init__(self, data: bytes, device="cpu"):
-        blocks, qtabs, geom, width, height = decode_coefficients(data)
+        with span("decode.jpeg.entropy", len(data)):
+            blocks, qtabs, geom, width, height = decode_coefficients(data)
         self.width = width
         self.height = height
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._geom = geom  # (by, bx, comp_w, comp_h, h_exp, v_exp) per comp
         zz_idx = np.asarray(ZIGZAG)
         # Quantizers in zigzag order, as csrc/idct.cu reads them.
@@ -111,7 +114,7 @@ class DeviceJpegDecoder:
     def to(self, device) -> "DeviceJpegDecoder":
         """This stream's decoder on ``device``, sharing the host
         coefficients."""
-        device = torch.device(device)
+        device = resolve_device(device)
         if device == self.device:
             return self
         other = object.__new__(DeviceJpegDecoder)
@@ -145,17 +148,19 @@ class DeviceJpegDecoder:
         the pixels go to its columns [x0, x0 + width) instead, and ``out``
         is returned. A band of one tile of ``decode_tiles_band``; ``staging``
         as there, else the decoder's own."""
-        if out is None:
-            out = torch.empty((y1 - y0, self.width, 4), dtype=torch.uint8, device=self.device)
-            x0 = 0
-        if staging is None:
-            if self._staging is None:
-                self._staging = BandStaging(self.device)
-            staging = self._staging
-        decode_tiles_band([(self, y0, y1, x0)], out, staging)
-        if return_device:
-            return out
-        return out.cpu().numpy()
+        with span("decode.jpeg.band"):
+            if out is None:
+                out = torch.empty((y1 - y0, self.width, 4), dtype=torch.uint8,
+                                  device=self.device)
+                x0 = 0
+            if staging is None:
+                if self._staging is None:
+                    self._staging = BandStaging(self.device)
+                staging = self._staging
+            decode_tiles_band([(self, y0, y1, x0)], out, staging)
+            if return_device:
+                return out
+            return out.cpu().numpy()
 
     def decode_full(self, band_height: int = 512) -> np.ndarray:
         """Whole image via banded decode (host assembly)."""
@@ -183,6 +188,7 @@ class StagedBand(NamedTuple):
     tiles: torch.Tensor
     tile_rows: StagedTable
     plane_bytes: int
+    staged_bytes: int
 
 
 def stage_tiles_band(items, out: torch.Tensor, staging: BandStaging) -> StagedBand:
@@ -245,7 +251,7 @@ def stage_tiles_band(items, out: torch.Tensor, staging: BandStaging) -> StagedBa
         t.bind(dev)
     return StagedBand(
         dev[c_at:nbytes].view(torch.int16), dev[q_at:c_at].view(torch.int32).view(-1, 64),
-        jobs, parts[0], tile_table, parts[1], plane_at)
+        jobs, parts[0], tile_table, parts[1], plane_at, nbytes)
 
 
 def decode_tiles_band(items, out: torch.Tensor, staging: BandStaging) -> torch.Tensor:
@@ -258,7 +264,10 @@ def decode_tiles_band(items, out: torch.Tensor, staging: BandStaging) -> torch.T
     One upload (``stage_tiles_band``), then ``idct_dequant_batch`` fills the
     band's plane buffer and ``ycc_rgba_batch`` colours it into ``out``, with
     nothing between them. Returns ``out``."""
-    band = stage_tiles_band(items, out, staging)
-    planes = torch.empty(band.plane_bytes, dtype=torch.uint8, device=out.device)
-    idct_dequant_batch(band.coefs, band.qtabs, band.jobs, planes, staged=band.ctas)
-    return ycc_rgba_batch(planes, band.tiles, out, staged=band.tile_rows)
+    with span("decode.jpeg.stage") as staged:
+        band = stage_tiles_band(items, out, staging)
+        staged.n = band.staged_bytes
+    with span("decode.jpeg.launch"):
+        planes = torch.empty(band.plane_bytes, dtype=torch.uint8, device=out.device)
+        idct_dequant_batch(band.coefs, band.qtabs, band.jobs, planes, staged=band.ctas)
+        return ycc_rgba_batch(planes, band.tiles, out, staged=band.tile_rows)

@@ -58,7 +58,7 @@ from ...native import (
 )
 from ...ops.backend import resolve_backend_name
 from ...ops.counters import EncodeCounters
-from ...ops.device import resolve_device
+from ...ops.resolve import resolve_device
 from ...ops.jpeg_dct import band_to_blocks_islow, band_to_blocks_islow_420
 from ...ops.jpeg_entropy_device import TorchJpegEncoder, unpack_rgba
 from ...parallel.mesh import Mesh, ShardedBand

@@ -76,13 +76,14 @@ from .layout.positioned import (
 from .ops.backend import get_backend, resolve_backend_name
 from .ops.composite_device import DeviceCompositor
 from .ops.counters import EncodeCounters
-from .ops.device import TorchBackend, resolve_device
+from .ops.device import TorchBackend
 from .ops.pixel import (
     background_pixel,
     composite_band,
     convert_band,
     determine_common_format,
 )
+from .ops.resolve import resolve_device
 from .parallel.mesh import Mesh, ShardedBand, make_mesh
 from .types import (
     ConcatOptions,
@@ -729,7 +730,9 @@ class TorchStreamingConcatenator:
             if not dev_gate:
                 return None
             if image_idx not in dev_cache:
-                dev_cache[image_idx] = sources[image_idx].device_decoder(self.device)
+                dev = sources[image_idx].device_decoder(self.device)
+                self.counters.decode_tiles_opened += dev is not None
+                dev_cache[image_idx] = dev
             return dev_cache[image_idx]
 
         ring = None
@@ -762,43 +765,59 @@ class TorchStreamingConcatenator:
             rows_served(image_idx, seg_y1 - seg_y0)
             return rows
 
-        def dev_band(segs, h: int) -> torch.Tensor:
+        def dev_band(band_y0: int, tile_rows, h: int) -> torch.Tensor:
             """A band fully tiled by device-decodable segments, decoded on
-            the device: one upload and two launches for all its tiles, each
-            tile written at its x offset into the band tensor."""
+            the device: for each row of tiles it crosses (``tile_rows``, as
+            ``make_plan`` gives them), one upload and two launches for all
+            the row's tiles, each tile written at its x offset into the
+            row's rows of the band tensor."""
             from .codecs.jpeg import device_decoder
 
-            band_dev = torch.empty((h, width, 4), dtype=torch.uint8, device=self.device)
-            items = [(dev_cache[image_idx], seg_y0 - placement_y0[image_idx],
-                      seg_y1 - placement_y0[image_idx], x0)
-                     for image_idx, x0, _w, seg_y0, seg_y1 in segs]
-            device_decoder.decode_tiles_band(items, band_dev, staging())
+            with span("decode.jpeg.band"):
+                band_dev = torch.empty((h, width, 4), dtype=torch.uint8, device=self.device)
+                for segs in tile_rows:
+                    seg_y0, seg_y1 = segs[0][3], segs[0][4]
+                    items = [(dev_cache[image_idx], seg_y0 - placement_y0[image_idx],
+                              seg_y1 - placement_y0[image_idx], x0)
+                             for image_idx, x0, _w, _y0, _y1 in segs]
+                    device_decoder.decode_tiles_band(
+                        items, band_dev[seg_y0 - band_y0 : seg_y1 - band_y0], staging())
             self.counters.decode_bands_on_device += 1
-            for image_idx, _x0, _w, seg_y0, seg_y1 in segs:
-                rows_served(image_idx, seg_y1 - seg_y0)
+            for segs in tile_rows:
+                for image_idx, _x0, _w, seg_y0, seg_y1 in segs:
+                    rows_served(image_idx, seg_y1 - seg_y0)
             return band_dev
 
+        def device_width(segs) -> bool:
+            """Whether ``segs``, left to right, tile the canvas's width, each
+            from a source the device tier serves."""
+            x_cursor = 0
+            for image_idx, x0, img_w, _y0, _y1 in segs:
+                if x0 != x_cursor or dev_for(image_idx) is None:
+                    return False
+                x_cursor = x0 + img_w
+            return x_cursor == width
+
         def make_plan(band_y0: int, h: int):
-            """("device", segs, None) when the band is fully tiled by
-            full-height device-decodable segments; else ("host", active,
-            futs) with pool futures for the take()-served segments only."""
+            """("device", tile_rows, None) when the band is fully tiled by
+            device-decodable segments: ``tile_rows`` holds, for each row of
+            tiles the band crosses, top to bottom, its segments left to
+            right, each row's segments spanning the same rows and the whole
+            width. Else ("host", active, futs) with pool futures for the
+            take()-served segments only."""
             active = band_active(band_y0, h)
             if dev_gate and active:
-                segs = sorted(active, key=lambda a: a[1])
-                x_cursor = 0
-                ok = True
-                for image_idx, x0, img_w, seg_y0, seg_y1 in segs:
-                    if (
-                        seg_y0 != band_y0
-                        or seg_y1 != band_y0 + h
-                        or x0 != x_cursor
-                        or dev_for(image_idx) is None
-                    ):
-                        ok = False
+                tile_rows: dict[tuple[int, int], list] = {}
+                for seg in sorted(active, key=lambda a: (a[3], a[1])):
+                    tile_rows.setdefault((seg[3], seg[4]), []).append(seg)
+                y_cursor = band_y0
+                for (seg_y0, seg_y1), segs in tile_rows.items():
+                    if seg_y0 != y_cursor or not device_width(segs):
                         break
-                    x_cursor = x0 + img_w
-                if ok and x_cursor == width:
-                    return ("device", segs, None)
+                    y_cursor = seg_y1
+                else:
+                    if y_cursor == band_y0 + h:
+                        return ("device", list(tile_rows.values()), None)
             futs = None
             if pool is not None:
                 # One pull per take()-served input (each input owns one
@@ -821,7 +840,7 @@ class TorchStreamingConcatenator:
             if plan[0] == "device":
                 if trim:
                     trim_malloc()
-                band_dev = dev_band(plan[1], h)
+                band_dev = dev_band(band_y0, plan[1], h)
                 if band_idx + 1 < len(band_specs):
                     pending = make_plan(*band_specs[band_idx + 1])
                 yield band_dev
@@ -848,6 +867,9 @@ class TorchStreamingConcatenator:
                 if band_idx + 1 < len(band_specs):
                     pending = make_plan(*band_specs[band_idx + 1])
             yield canvas
+        if ring is not None:
+            self.counters.decode_staged_uploads += ring.uploads
+            self.counters.decode_staging_stalls += ring.stalls
 
     # -------------------------- positioned mode ------------------------ #
 

@@ -31,9 +31,10 @@ import torch
 
 from ..errors import StitchError
 from .counters import EncodeCounters
-from .device import TorchBackend, resolve_device
+from .device import TorchBackend
 from .pixel import band_to_bytes
 from .png_filter import filter_select_band
+from .resolve import resolve_device
 
 
 class NumpyBackend:

@@ -27,6 +27,7 @@ import torch
 
 from ..parallel.mesh import Mesh, ShardedBand, row_slabs
 from .counters import EncodeCounters
+from .resolve import resolve_device
 from .kernels import META_COLS, META_H, META_OFFSET, META_STRIDE, META_Y0, composite_segments
 
 
@@ -56,7 +57,7 @@ class DeviceCompositor:
 
     def __init__(self, device, counters: EncodeCounters | None = None,
                  mesh: Mesh | None = None, align: int = 1):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.counters = counters if counters is not None else EncodeCounters()
         self.mesh = mesh
         self.align = align

@@ -19,12 +19,15 @@ class EncodeCounters:
     Positioned compositing (``ops.composite_device.DeviceCompositor``):
     bands blended on the device, and bands replayed through the host oracle
     on an exact rational tie. JPEG tiles decoded by the device tier
-    (``core._grid_canvas_bands``): decodes counted per tile and band, and
-    the bands decoded whole into a band tensor on the device (one upload and
-    two launches each, whatever the number of tiles). Bands encoded by the
-    host tier (``backend="numpy"``: the host ``StreamingJpegEncoder``, and
-    ``core._encode_png`` on ``ops.backend.NumpyBackend``), which launches no
-    kernel. Under a mesh (``parallel.mesh``): the JPEG dispatches made on
+    (``core._grid_canvas_bands``): decodes counted per tile and band, the
+    bands decoded whole into a band tensor on the device (one upload and
+    two launches for each row of tiles a band crosses, whatever the number
+    of tiles), the tiles the tier opened (each one host Huffman decode),
+    and, read from the tier's staging ring at the end of a run, its uploads
+    and the acquires of a slot whose earlier copy was still in flight.
+    Bands encoded by the host tier (``backend="numpy"``: the host
+    ``StreamingJpegEncoder``, and ``core._encode_png`` on
+    ``ops.backend.NumpyBackend``), which launches no kernel. Under a mesh (``parallel.mesh``): the JPEG dispatches made on
     its shards (each one quantize, symbols, layout and pack; a band's tail
     group included), and the slabs that ``TorchBackend`` filtered or
     quantized on them."""
@@ -39,6 +42,9 @@ class EncodeCounters:
     composite_fallback_bands: int = 0
     decode_tile_bands: int = 0
     decode_bands_on_device: int = 0
+    decode_tiles_opened: int = 0
+    decode_staged_uploads: int = 0
+    decode_staging_stalls: int = 0
     host_tier_bands: int = 0
     mesh_dispatches: int = 0
     mesh_slabs: int = 0

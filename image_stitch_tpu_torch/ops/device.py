@@ -18,25 +18,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..errors import StitchError
 from ..parallel.mesh import Mesh, band_rows, row_slabs
 from ..utils.observability import span
 from .counters import EncodeCounters
 from .kernels import fdct_quant, filter_select, png_bytes
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """``device`` as a torch.device; "cuda" without a usable card raises
-    instead of running on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise StitchError(
-            f"device={str(device)!r} requested but CUDA is not available; "
-            "pass device='cpu' to run the plain torch versions"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise StitchError(f"Unsupported device: {device}")
-    return dev
+from .resolve import resolve_device
 
 
 def jpeg_quantize(band: torch.Tensor, luma_q: torch.Tensor, chroma_q: torch.Tensor):
@@ -100,7 +86,7 @@ class TorchBackend:
 
     def __init__(self, device, counters: EncodeCounters | None = None,
                  mesh: Mesh | None = None):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.counters = counters if counters is not None else EncodeCounters()
         self.mesh = mesh
 

@@ -49,6 +49,7 @@ from ..utils.observability import span
 from .counters import EncodeCounters
 from .device import jpeg_quantize, jpeg_quantize_420
 from .kernels import group_layout, pack_merge, stream_fits_int32, symbol_streams
+from .resolve import resolve_device
 from .staging import BandStaging
 
 # Packed-output budget in bits per pixel before the first band reports,
@@ -57,14 +58,6 @@ DEFAULT_CAP_BITS_PER_PX = 3
 MAX_CAP_BITS_PER_PX = 12
 # Largest per-block word budget (768 bits per block).
 LOCAL_WORDS = 24
-
-
-def canonical_device(device) -> torch.device:
-    """``device`` with its index: "cuda" is the current card."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def _to_int32(a: np.ndarray, device) -> torch.Tensor:
@@ -420,7 +413,7 @@ class TorchJpegEncoder:
                  local_words: int = LOCAL_WORDS,
                  counters: EncodeCounters | None = None, mesh: Mesh | None = None):
         self.mesh = mesh
-        self.device = mesh.flat()[0] if mesh is not None else canonical_device(device)
+        self.device = mesh.flat()[0] if mesh is not None else resolve_device(device)
         self.counters = counters if counters is not None else EncodeCounters()
         self._local_words = int(local_words)
         # Quantizers and symbol tables on each device the encoder runs on.

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from .resolve import resolve_device
+
 # Buffers of a staging ring: the host fills one while the copy of the band
 # before may still read the other. The events guard a buffer's reuse only
 # because there are two.
@@ -26,12 +28,13 @@ class BandStaging:
     nothing to wait for."""
 
     def __init__(self, device):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._buffers: list[torch.Tensor | None] = [None] * STAGING_RING
         self._events: list[object | None] = [None] * STAGING_RING
         self._next = 0
         self.waits = 0  # acquires that found their buffer's copy guarded by an event
         self.stalls = 0  # of those, the ones whose copy was still in flight
+        self.uploads = 0  # slots handed to ``upload``
 
     def acquire(self, nbytes: int) -> tuple[int, torch.Tensor]:
         """The next buffer of the ring, at least ``nbytes`` long, free to
@@ -59,6 +62,7 @@ class BandStaging:
         asynchronous copy, with the slot's event recorded behind it. On the
         CPU the buffer itself."""
         host = self._buffers[slot][:nbytes]
+        self.uploads += 1
         if self.device.type != "cuda":
             return host
         dev = torch.empty(nbytes, dtype=torch.uint8, device=self.device)

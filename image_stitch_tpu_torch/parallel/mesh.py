@@ -34,19 +34,12 @@ import numpy as np
 import torch
 
 from ..errors import StitchError
+from ..ops.resolve import resolve_device
 
 # Virtual shards a CPU mesh may have: the JAX test suite's forced host
 # device count (tests/conftest.py), so that both packages refuse the same
 # meshes.
 CPU_SHARDS = 8
-
-
-def _canonical(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        index = torch.cuda.current_device() if torch.cuda.is_available() else 0
-        return torch.device("cuda", index)
-    return device
 
 
 class Mesh:
@@ -58,14 +51,19 @@ class Mesh:
 
     def __init__(self, devices, axis_names: Sequence[str] = ("band", "x")):
         arr = np.asarray(devices, dtype=object)
-        flat = [_canonical(d) for d in arr.reshape(-1)]
-        if not flat:
+        given = [torch.device(d) for d in arr.reshape(-1)]
+        if not given:
             raise StitchError("a mesh needs at least one device")
         if arr.ndim != len(axis_names):
             raise StitchError(f"mesh devices of shape {arr.shape} for axes {tuple(axis_names)}")
-        kinds = {d.type for d in flat}
+        kinds = {d.type for d in given}
         if len(kinds) != 1 or not kinds <= {"cuda", "cpu"}:
             raise StitchError(f"a mesh's devices must all be cuda or all cpu, got {sorted(kinds)}")
+        # A card given with its index is kept unchecked, so that a mesh may
+        # describe cards that a later call refuses on a machine without them
+        # (an entry point then names the mesh's device kind); "cuda" is the
+        # current card.
+        flat = [d if d.index is not None else resolve_device(d) for d in given]
         self.devices = np.empty(arr.shape, dtype=object)
         self.devices.reshape(-1)[:] = flat
         self.axis_names = tuple(axis_names)

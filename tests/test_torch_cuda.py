@@ -609,6 +609,47 @@ def test_jpeg_tiles_grid_matches_host(cuda, ri, sampling):
     assert after[2] > counts[2] and after[3] > counts[3]
 
 
+@pytest.mark.parametrize("case", ["jpeg_tiles", "positioned_jpeg", "positioned_png", "grid_png"])
+def test_the_default_device_string(cuda, case):
+    """device="cuda", the string every entry point defaults to: resolved to
+    the current card with its index, so the JPEG-tile decode's guard finds
+    the decoders, the staging ring and the band on one device. A JPEG-tile
+    grid (the band of rows 48-96 crosses a tile boundary) decodes every
+    band on the card; a positioned job blends there; both encoders run
+    there; each gives the bytes of the JAX package's host tier."""
+    rng = np.random.default_rng(17)
+    if case == "jpeg_tiles":
+        tiles = [jpeg_bytes(rng.integers(0, 256, (64, 80, 3), dtype=np.uint8), "420")
+                 for _ in range(4)]
+        opts = {"inputs": tiles, "layout": {"columns": 2}, "outputFormat": "jpeg",
+                "bandHeight": 48}
+    elif case == "grid_png":
+        tiles = [png_from_array(rng.integers(0, 256, (40, 56, 4), dtype=np.uint8))
+                 for _ in range(4)]
+        opts = {"inputs": tiles, "layout": {"columns": 2}, "outputFormat": "png",
+                "bandHeight": 32}
+    else:
+        base = rng.integers(0, 256, (64, 96, 4), dtype=np.uint8)
+        base[:, :, 3] = 255
+        sprite = rng.integers(0, 256, (40, 30, 4), dtype=np.uint8)
+        sprite[:, :, 3] = np.linspace(30, 230, 30).astype(np.uint8)[None, :]
+        opts = {"inputs": [PositionedImage(0, 0, png_from_array(base)),
+                           PositionedImage(20, 10, png_from_array(sprite))],
+                "bandHeight": 32, "outputFormat": case.split("_")[1]}
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    got = image_stitch_tpu_torch.concat_to_buffer(opts, device="cuda", counters=counters)
+    assert got == host(opts)
+    assert counters.host_tier_bands == 0
+    if case == "jpeg_tiles":
+        assert counters.decode_bands_on_device == 3 and counters.decode_tiles_opened == 4
+        assert counters.decode_staged_uploads == 4 and counters.bands == 3
+    elif case == "grid_png":
+        assert counters.png_bands == 3
+    else:
+        assert counters.composite_bands_on_device > 0
+        assert (counters.bands if case == "positioned_jpeg" else counters.png_bands) == 2
+
+
 # ---------------------------------------------------------- packed bands --- #
 
 

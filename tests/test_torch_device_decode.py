@@ -359,13 +359,20 @@ def test_grid_row_of_unlike_tiles_matches_jax(decodes, host_decodes):
 
 
 def test_band_crossing_tile_boundary(decodes, host_decodes):
-    """Tiles 56 rows high in 16-row bands: bands that cross a tile boundary
-    are assembled on the host from decode_band's host arrays, the others
-    on the device."""
+    """Tiles 56 rows high in 16-row bands: a band that crosses a tile
+    boundary is decoded on the device too, each row of tiles it crosses
+    into its own rows of the band tensor; no band is assembled on the
+    host."""
     opts = options([jpeg_tile(s, 48, 56, "444") for s in range(4)], band_height=16)
-    assert port(opts) == jax_package(opts, "numpy")
-    kinds = {into for _y0, _y1, into in decodes}
-    assert kinds == {True, False} and not host_decodes
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    got = image_stitch_tpu_torch.concat_to_buffer(opts, device="cpu", counters=counters)
+    assert got == jax_package(opts, "numpy")
+    assert {into for _y0, _y1, into in decodes} == {True} and not host_decodes
+    # 7 bands of 2 tiles; band 3 (rows 48-64) crosses: rows 48-56 of the
+    # top tiles, then rows 0-8 of the bottom ones.
+    assert len(decodes) == 7 * 2 + 2 and decodes[6:10] == [(48, 56, True)] * 2 + [(0, 8, True)] * 2
+    assert (counters.decode_bands_on_device, counters.decode_tile_bands) == (7, 16)
+    assert counters.decode_staged_uploads == 8 and counters.decode_tiles_opened == 4
 
 
 def test_mixed_png_jpeg_grid(decodes):
@@ -449,12 +456,13 @@ def test_decode_packed_variable_changes_nothing(decodes, monkeypatch, ri):
 
 def test_decode_packed_mixed_plan_stream(decodes, monkeypatch):
     """Tiles 56 rows high in 16-row bands: the JAX package packs the bands
-    it decodes whole and interleaves those assembled on the host; the port
-    gives its bytes with both plans in one stream."""
+    it decodes whole and interleaves those assembled on the host; the port,
+    which decodes the bands that cross a tile boundary on the device too,
+    gives its bytes."""
     monkeypatch.setenv("STITCH_TPU_DECODE_PACKED", "1")
     opts = options([jpeg_tile(s, 48, 56) for s in range(4)], band_height=16)
     assert port(opts) == jax_package(opts, "jax") == jax_package(opts, "numpy")
-    assert {into for *_, into in decodes} == {True, False}
+    assert {into for *_, into in decodes} == {True}
 
 
 @pytest.mark.parametrize("gray", [False, True])

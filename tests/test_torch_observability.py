@@ -102,6 +102,9 @@ PARENTS = {
     "jpeg.stuff": "jpeg.wait",
     "png.submit": "job", "png.upload": "png.submit", "png.device_wait": "job",
     "png.deflate": "job", "png.idat": "job",
+    "decode.jpeg.open": "job", "decode.jpeg.entropy": "decode.jpeg.open",
+    "decode.jpeg.band": "job", "decode.jpeg.stage": "decode.jpeg.band",
+    "decode.jpeg.launch": "decode.jpeg.band",
 }
 DECODE = {"job", "assemble", "decode.png", "decode.inflate", "decode.defilter"}
 CATALOGUE = {"jpeg": DECODE | {n for n in PARENTS if n.startswith("jpeg.")},
@@ -286,3 +289,68 @@ def test_device_trace_holds_the_span_names(monkeypatch, tmp_path, fmt, fast):
         out = port.concat_to_buffer(grid_options(fmt), device="cpu")
     assert out
     assert CATALOGUE[fmt] - {"job"} <= trace_names(tmp_path)
+
+
+# --------------------------------------------------------------------------- #
+# The JPEG-tile device decode
+# --------------------------------------------------------------------------- #
+
+JPEG_TILE_DECODE = {n for n in PARENTS if n.startswith("decode.jpeg.")}
+
+
+def jpeg_tile_options() -> dict:
+    """A 2x2 grid of 160x120 q90 4:2:0 JPEG tiles in 64-row bands: every
+    band decoded by the device tier (on the CPU, the kernels' plain
+    versions), the band of rows 64-128 across both rows of tiles."""
+    tiles = [port.concat_to_buffer({"inputs": [smooth_tile(s)], "layout": {"columns": 1},
+                                    "outputFormat": "jpeg", "jpegQuality": 90,
+                                    "jpegSampling": "420"}, device="cpu") for s in range(4)]
+    return {"inputs": tiles, "layout": {"columns": 2}, "outputFormat": "jpeg",
+            "bandHeight": 64}
+
+
+def test_jpeg_tile_decode_spans_under_the_profiler():
+    """A traced job over JPEG tiles records each span of the decode under
+    its parent, with its ``n``: each tile opened once (its file's bytes,
+    the host Huffman decode under it), a band span a band, a staged upload
+    and a launch pair for each row of tiles a band crosses. The counters
+    count the tiles opened and the decode ring's uploads, as untraced."""
+    opts = jpeg_tile_options()
+    ob.clear()
+    plain_counters = port.EncodeCounters()
+    plain = b"".join(TorchStreamingConcatenator(opts, device="cpu",
+                                                counters=plain_counters).stream())
+    assert ob.spans() == []
+    counters = port.EncodeCounters()
+    c = TorchStreamingConcatenator(opts, device="cpu", counters=counters)
+    (out,) = profiled_jobs(c)
+    assert out == plain and counters == plain_counters
+    recs = ob.spans()
+    assert JPEG_TILE_DECODE <= {r.name for r in recs}
+    assert not {"assemble", "decode.png", "decode.jpeg", "jpeg.upload"} & {r.name for r in recs}
+    by_id = {r.id: r for r in recs}
+    for r in recs:
+        if r.name in JPEG_TILE_DECODE:
+            parent = by_id[r.parent]
+            assert parent.name == PARENTS[r.name], (r.name, parent.name)
+            assert parent.start <= r.start <= r.end <= parent.end
+    names = [r.name for r in recs]
+    sizes = sorted(len(t) for t in opts["inputs"])
+    assert sorted(r.n for r in recs if r.name == "decode.jpeg.open") == sizes
+    assert sorted(r.n for r in recs if r.name == "decode.jpeg.entropy") == sizes
+    assert names.count("decode.jpeg.band") == 4
+    assert names.count("decode.jpeg.stage") == names.count("decode.jpeg.launch") == 5
+    # at least one luma block row of both tiles: 40 blocks, K >= 8, 2 B each
+    assert all(r.n >= 40 * 8 * 2 for r in recs if r.name == "decode.jpeg.stage")
+    assert all(r.n == 0 for r in recs if r.name in ("decode.jpeg.band", "decode.jpeg.launch"))
+    assert (counters.decode_bands_on_device, counters.decode_tile_bands) == (4, 10)
+    assert counters.decode_tiles_opened == 4 and counters.decode_staged_uploads == 5
+    assert counters.decode_staging_stalls == 0 and counters.host_tier_bands == 0
+
+
+def test_jpeg_tile_decode_untraced_records_nothing():
+    ob.clear()
+    c = TorchStreamingConcatenator(jpeg_tile_options(), device="cpu")
+    assert b"".join(c.stream())[:2] == b"\xff\xd8"
+    assert ob.spans() == [] and c.stats.report()["stages"] == {}
+    assert c.counters.decode_tiles_opened == 4 and c.counters.decode_staged_uploads == 5
