@@ -69,7 +69,9 @@ path. Phases, each printing its lines before the last:
      q90 4:2:0, as an 8 x 8 grid to JPEG (band 256, q85, restart rows 1),
      byte-identical to the same call with STITCH_TPU_DEVICE_DECODE=0 (host
      decode, card encode): every band decoded whole on the card (32 bands,
-     256 tile-and-band decodes), no tile decoded on the host, and per
+     256 tile-and-band decodes), no tile decoded on the host, every tile's
+     upload straight from the native scan (decode_tiles_native_prefix ==
+     decode_tiles_opened, in every run), and per
      decoded band one upload, one idct_dequant and one ycc_rgba launch; the
      8 x 2 grid (16.8 MP), a 2 x 2 grid of q90 4:4:4 tiles with restart
      rows 0 and a mixed PNG and JPEG 2 x 2 grid (its JPEG tiles one
@@ -1065,6 +1067,9 @@ def run_path(name: str, opts: dict, megapixels: float, dev: torch.device,
         fail(f"{name}: {counters.host_fallback_bands} bands were coded on the host")
     if counters.host_tier_bands:
         fail(f"{name}: {counters.host_tier_bands} bands were coded on the host tier")
+    if counters.decode_tiles_native_prefix != counters.decode_tiles_opened:
+        fail(f"{name}: {counters.decode_tiles_native_prefix} of {counters.decode_tiles_opened} "
+             f"tiles opened took the native scan's transport")
     if opts["outputFormat"] == "jpeg":
         if out[:2] != b"\xff\xd8" or out[-2:] != b"\xff\xd9":
             fail(f"{name}: not a JPEG stream")
@@ -1533,17 +1538,42 @@ def jpeg_kernel_timing(tiles_jpeg: list[bytes], dev: torch.device) -> tuple[dict
     return t, moved, errs
 
 
-def host_huffman_rate(tiles_jpeg: list[bytes]) -> float:
-    """MP/s of the host's Huffman decode alone (decode_coefficients) over
-    the JPEG tiles: the serial stage of JPEG-tile decode."""
-    from image_stitch_tpu_torch.codecs.jpeg.owned_decoder import decode_coefficients
+def host_huffman_rate(tiles_jpeg: list[bytes]) -> tuple[float, float, float]:
+    """MP/s of the host's Huffman decode alone over the JPEG tiles, the
+    serial stage of JPEG-tile decode: the host tier's (decode_coefficients,
+    int32 natural order), the device tier's (decode_zigzag_coefficients,
+    int16 zigzag order with its figures), and the device tier's whole
+    opening of a tile (DeviceJpegDecoder on the CPU: the scan and the held
+    transport)."""
+    from image_stitch_tpu_torch.codecs.jpeg.device_decoder import DeviceJpegDecoder
+    from image_stitch_tpu_torch.codecs.jpeg.owned_decoder import (
+        decode_coefficients,
+        decode_zigzag_coefficients,
+    )
 
-    t0 = time.perf_counter()
-    px = 0
-    for data in tiles_jpeg:
+    def rate(decode) -> float:
+        t0 = time.perf_counter()
+        px = 0
+        for data in tiles_jpeg:
+            px += decode(data)
+        return px / 1e6 / (time.perf_counter() - t0)
+
+    def natural(data) -> int:
         _blocks, _q, _geom, w, h = decode_coefficients(data)
-        px += w * h
-    return px / 1e6 / (time.perf_counter() - t0)
+        return w * h
+
+    def zigzag(data) -> int:
+        zz = decode_zigzag_coefficients(data)
+        if zz is None:
+            fail("a port-made JPEG tile did not take the native scan's transport")
+        zz.release()
+        return zz.width * zz.height
+
+    def opened(data) -> int:
+        dec = DeviceJpegDecoder(data, "cpu")
+        return dec.width * dec.height
+
+    return rate(natural), rate(zigzag), rate(opened)
 
 
 def e2e_rates(opts: dict, megapixels: float, dev: torch.device, runs: int = 2) -> list[float]:
@@ -2500,8 +2530,10 @@ def main() -> None:
         del os.environ["STITCH_TPU_DEVICE_DECODE"]
     say(f"e2e jpeg_tiles 67.1 MP ri=1 q{QUALITY}, host decode (STITCH_TPU_DEVICE_DECODE=0) "
         f"torch: {', '.join(f'{x:.2f}' for x in r)} MP/s [{card}]")
-    say(f"host Huffman decode alone (decode_coefficients, {len(tiles_jpeg)} tiles): "
-        f"{host_huffman_rate(tiles_jpeg):.2f} MP/s [{card}]")
+    natural, zigzag, opened = host_huffman_rate(tiles_jpeg)
+    say(f"host Huffman decode alone ({len(tiles_jpeg)} tiles): decode_coefficients "
+        f"{natural:.2f}, decode_zigzag_coefficients {zigzag:.2f} MP/s; a tile opened by the "
+        f"device tier (DeviceJpegDecoder on the CPU) {opened:.2f} MP/s [{card}]")
     say(f"host decode + assembly alone (no encode): {host_assembly_rate(tiles_png):.2f} MP/s "
         f"[{card}]")
     say(f"host deflate alone (level 6, filtered rows): {host_deflate_rate(tiles, dev):.2f} MP/s "

@@ -2,8 +2,12 @@
 band on the device.
 
 Counterpart of ``image_stitch_tpu/codecs/jpeg/device_decoder.py``. The
-serial entropy stage runs once on the host
-(``owned_decoder.decode_coefficients``). Per band, ``decode_tiles_band``
+serial entropy stage runs once on the host: for a baseline stream the
+native scan writes the transport itself
+(``owned_decoder.decode_zigzag_coefficients``: int16 in zigzag order, with
+each component's last nonzero position and peak), else
+``owned_decoder.decode_coefficients`` (int32, natural order) and a NumPy
+pass take the same transport from it. Per band, ``decode_tiles_band``
 takes every tile of the band at once: the windows of zigzag-prefix
 coefficients of all tiles and components, their quantizer tables and the
 two kernels' tables go up in ONE copy from a pinned staging buffer, and two
@@ -43,10 +47,21 @@ from ...ops.kernels import (
     ycc_rgba_batch,
     ycc_tile_table,
 )
+from ...native import jpeg_zigzag_prefix_native
 from ...ops.staging import BandStaging
 from ...utils.observability import span
-from .owned_decoder import decode_coefficients
+from .owned_decoder import decode_coefficients, decode_zigzag_coefficients
 from .tables import ZIGZAG
+
+_ZIGZAG_POS = np.argsort(ZIGZAG)  # the zigzag position of each natural index
+
+
+def _natural_figures(blocks: np.ndarray) -> tuple[int, int]:
+    """A component's highest nonzero zigzag position (-1: none) and peak
+    |coefficient|, from its (n, 64) natural-order blocks."""
+    peak = max(int(blocks.max()), -int(blocks.min())) if blocks.size else 0
+    nz = np.flatnonzero(blocks.any(axis=0))
+    return (int(_ZIGZAG_POS[nz].max()) if len(nz) else -1), peak
 
 
 def _band_window(y0: int, y1: int, comp_h: int, v_exp: int, fancy_v: bool):
@@ -80,35 +95,46 @@ class DeviceJpegDecoder:
 
     def __init__(self, data: bytes, device="cpu"):
         with span("decode.jpeg.entropy", len(data)):
-            blocks, qtabs, geom, width, height = decode_coefficients(data)
+            zz = decode_zigzag_coefficients(data)
+            if zz is None:
+                blocks, qtabs, geom, width, height = decode_coefficients(data)
+                figures = [_natural_figures(b) for b in blocks]
+            else:
+                qtabs, geom, width, height = zz.qtabs, zz.geom, zz.width, zz.height
+                figures = list(zip(zz.last, zz.peak))
         self.width = width
         self.height = height
         self.device = resolve_device(device)
         self._geom = geom  # (by, bx, comp_w, comp_h, h_exp, v_exp) per comp
+        # Whether the transport came straight from the native scan.
+        self.native_prefix = zz is not None
         zz_idx = np.asarray(ZIGZAG)
         # Quantizers in zigzag order, as csrc/idct.cu reads them.
         self._qtabs_zz = [np.ascontiguousarray(np.asarray(q, dtype=np.int32)[zz_idx])
                           for q in qtabs]
-        self._zz_blocks: list[np.ndarray] = []
         self._k: list[int] = []
         # Per component: whether every |coefficient * quantizer| is within
         # the bound under which the IDCT's column pass is exact in 32 bits.
         self._narrow: list[bool] = []
-        self.safe = len(blocks) in (1, 3)
-        zz_pos = np.argsort(zz_idx)  # zigzag position of each natural index
-        for b, q in zip(blocks, self._qtabs_zz):
-            peak = max(int(b.max()), -int(b.min())) if b.size else 0
+        self.safe = len(geom) in (1, 3)
+        for (last, peak), q in zip(figures, self._qtabs_zz):
             if peak >= (1 << 15):
                 self.safe = False
             self._narrow.append(peak * int(np.abs(q).max()) <= IDCT_INT32_MAX_DEQ)
             # Image-wide zigzag prefix: K = last nonzero zigzag position + 1,
-            # rounded up to a multiple of 8; only those columns are kept
-            # (np.take: several times faster than fancy indexing here).
-            nz = np.flatnonzero(b.any(axis=0))
-            k = int(zz_pos[nz].max()) + 1 if len(nz) else 1
-            k = min(64, -(-k // 8) * 8)
-            self._k.append(k)
-            self._zz_blocks.append(np.take(b, zz_idx[:k], axis=1).astype(np.int16))
+            # rounded up to a multiple of 8; only those columns are kept.
+            self._k.append(min(64, -(-max(last + 1, 1) // 8) * 8))
+        # The (n, K) int16 blocks that go up, a component each.
+        if zz is None:
+            # np.take: several times faster than fancy indexing here.
+            self._zz_blocks = [np.take(b, zz_idx[:k], axis=1).astype(np.int16)
+                               for b, k in zip(blocks, self._k)]
+        else:
+            try:
+                self._zz_blocks = [jpeg_zigzag_prefix_native(b, k)
+                                   for b, k in zip(zz.blocks, self._k)]
+            finally:
+                zz.release()
         self._staging: BandStaging | None = None
 
     def to(self, device) -> "DeviceJpegDecoder":

@@ -39,9 +39,20 @@ class _Component:
     tq: int
     td: int = 0
     ta: int = 0
-    blocks: np.ndarray | None = None  # (by, bx, 64) int32
+    blocks: np.ndarray | None = None  # (by*bx, 64): int32 natural, or int16 zigzag
     bx: int = 0
     by: int = 0
+    # The zigzag store's figures (decode_zigzag_coefficients): the highest
+    # nonzero zigzag position (-1: none), the peak |coefficient|; None until
+    # a scan has stored the component.
+    last: int | None = None
+    peak: int = 0
+
+
+class _NaturalRoute(Exception):
+    """The stream is not one the zigzag store takes (progressive, the
+    native tier absent, a component scanned twice or never, a value past
+    int16): it goes the natural-order route, ``decode_coefficients``."""
 
 
 class _BitReader:
@@ -179,9 +190,75 @@ def decode_coefficients(data: bytes):
         raise
     except (IndexError, ValueError, ZeroDivisionError) as exc:
         raise StitchError("Invalid JPEG: malformed stream", exc) from exc
+    qts, geom = _tables_and_geometry(width, height, comps, qtables)
+    return [c.blocks for c in comps], qts, geom, width, height
+
+
+@dataclass
+class ZigzagCoefficients:
+    """A baseline stream's coefficients as the native scan's zigzag store
+    leaves them: per component, ``blocks`` (by*bx, 64) int16 in zigzag
+    order, held in scratch of ``native.buffer_pool`` until ``release()``;
+    ``last``, the highest nonzero zigzag position (-1: none); ``peak``, the
+    largest |coefficient| (below 2^15). ``qtabs``, ``geom``, ``width`` and
+    ``height`` as ``decode_coefficients`` gives them."""
+
+    blocks: list
+    last: list
+    peak: list
+    qtabs: list
+    geom: list
+    width: int
+    height: int
+    scratch: list = field(default_factory=list, repr=False)
+
+    def release(self) -> None:
+        """Hand the blocks' scratch back to the pool; the blocks are gone."""
+        _release(self.scratch)
+        self.scratch, self.blocks = [], []
+
+
+def _release(scratch: list) -> None:
+    from ...native import buffer_pool
+
+    for buf in scratch:
+        buffer_pool.put(buf)
+
+
+def decode_zigzag_coefficients(data: bytes) -> ZigzagCoefficients | None:
+    """The host Huffman stage of a baseline (SOF0/SOF1) stream, through the
+    native scan's zigzag store: coefficients in zigzag order as int16, and
+    the figures the device tier's transport needs, gathered as the scan
+    stores them. None for a stream the store does not take (progressive,
+    the native tier absent, a component scanned twice or never, a value at
+    or past 2^15): ``decode_coefficients`` decodes it."""
+    scratch: list[np.ndarray] = []
+    kept = False
+    try:
+        try:
+            width, height, comps, qtables = _decode_to_coefficients(bytes(data), scratch)
+        except (IndexError, ValueError, ZeroDivisionError) as exc:
+            raise StitchError("Invalid JPEG: malformed stream", exc) from exc
+        if any(c.last is None or c.peak >= 1 << 15 for c in comps):
+            return None
+        qts, geom = _tables_and_geometry(width, height, comps, qtables)
+        kept = True
+        return ZigzagCoefficients(
+            [c.blocks for c in comps], [c.last for c in comps], [c.peak for c in comps],
+            qts, geom, width, height, scratch)
+    except _NaturalRoute:
+        return None
+    finally:
+        if not kept:
+            _release(scratch)
+
+
+def _tables_and_geometry(width, height, comps, qtables):
+    """Per component, its natural-order quantizer table and its
+    (by, bx, comp_w, comp_h, h_expand, v_expand)."""
     hmax = max(c.h for c in comps)
     vmax = max(c.v for c in comps)
-    blocks, qts, geom = [], [], []
+    qts, geom = [], []
     for c in comps:
         q = qtables.get(c.tq)
         if q is None:
@@ -189,12 +266,16 @@ def decode_coefficients(data: bytes):
         comp_w = -(-width * c.h // hmax)
         comp_h = -(-height * c.v // vmax)
         geom.append((c.by, c.bx, comp_w, comp_h, hmax // c.h, vmax // c.v))
-        blocks.append(c.blocks)
         qts.append(q)
-    return blocks, qts, geom, width, height
+    return qts, geom
 
 
-def _decode_to_coefficients(data: bytes):
+def _decode_to_coefficients(data: bytes, scratch: list | None = None):
+    """Walk the stream's markers and decode its scans into its components'
+    blocks: natural-order int32, or, given ``scratch``, the zigzag store's
+    int16 in buffers of ``native.buffer_pool``, each appended to
+    ``scratch`` as it is taken (raises ``_NaturalRoute`` for a stream the
+    store does not take)."""
     data = bytes(data)
     if data[:2] != b"\xff\xd8":
         raise StitchError("Invalid JPEG: missing SOI")
@@ -258,6 +339,8 @@ def _decode_to_coefficients(data: bytes):
                 (ac_tables if tc else dc_tables)[th] = table
         elif marker in (0xC0, 0xC1, 0xC2):  # SOF0/1 baseline, SOF2 progressive
             progressive = marker == 0xC2
+            if progressive and scratch is not None:
+                raise _NaturalRoute
             precision = body[0]
             if precision != 8:
                 raise StitchError(f"Unsupported JPEG precision: {precision}")
@@ -315,7 +398,13 @@ def _decode_to_coefficients(data: bytes):
                 for c in comps:
                     c.bx = mcux * c.h
                     c.by = mcuy * c.v
-                    c.blocks = np.zeros((c.by * c.bx, 64), dtype=np.int32)
+                    if scratch is None:
+                        c.blocks = np.zeros((c.by * c.bx, 64), dtype=np.int32)
+                    else:
+                        from ...native import buffer_pool
+
+                        scratch.append(buffer_pool.get(c.by * c.bx * 128))
+                        c.blocks = scratch[-1].view(np.int16).reshape(-1, 64)
             # Scans accumulate coefficients into the persistent per-
             # component arrays; _finish_decode runs once at EOI. Baseline
             # sequential images may carry SEVERAL scans too (T.81 A.2
@@ -323,11 +412,12 @@ def _decode_to_coefficients(data: bytes):
             # the common single-scan file takes the same path and just
             # finds EOI right after its scan.
             if not progressive:
-                _decode_scan(
+                end = _decode_scan(
                     data, scan_start, width, height, comps, order,
-                    dc_tables, ac_tables, restart_interval,
+                    dc_tables, ac_tables, restart_interval, scratch is not None,
                 )
-                end = _next_marker_pos(data, scan_start)
+                if end is None:
+                    end = _next_marker_pos(data, scan_start)
             else:
                 # Progressive: T.81 G.2; reference parity:
                 # jpeg-decoder.ts:250-262 via jpeg-js decodeScan
@@ -351,22 +441,29 @@ def _decode_to_coefficients(data: bytes):
 
 def _decode_scan(
     data, scan_start, width, height, comps, order,
-    dc_tables, ac_tables, restart_interval,
-) -> None:
+    dc_tables, ac_tables, restart_interval, zigzag=False,
+) -> int | None:
     """Decode one baseline scan into the components' (pre-allocated)
     coefficient arrays. ``order`` may be a subset of ``comps`` (multi-
     scan sequential files); a single-component scan is non-interleaved
-    (T.81 A.2)."""
+    (T.81 A.2). ``zigzag``: the arrays are the zigzag store's, which only
+    the native scan fills (else ``_NaturalRoute``); it also finds the next
+    marker's position, which is returned (else None)."""
     hmax = max(c.h for c in comps)
     vmax = max(c.v for c in comps)
     mcux = -(-width // (8 * hmax))
     mcuy = -(-height // (8 * vmax))
 
+    if zigzag:
+        return _decode_scan_zigzag_native(
+            data, scan_start, width, height, comps, order, dc_tables, ac_tables,
+            mcux, mcuy, restart_interval,
+        )
     if _decode_scan_native(
         data, scan_start, width, height, comps, order, dc_tables, ac_tables,
         mcux, mcuy, restart_interval,
     ):
-        return
+        return None
 
     br = _BitReader(data, scan_start)
     preds = {c.comp_id: 0 for c in comps}
@@ -631,12 +728,7 @@ def _decode_progressive_scan_native(
     the scan needs is missing — the Python body raises the precise
     diagnostic)."""
     try:
-        from ...native import (
-            HuffDecTableC,
-            jpeg_decode_progressive_scan_native,
-            make_huff_dec_table,
-            native_available,
-        )
+        from ...native import jpeg_decode_progressive_scan_native, native_available
 
         if not native_available() or len(order) > 4:
             return False
@@ -647,18 +739,7 @@ def _decode_progressive_scan_native(
         if ss > 0:
             if len(order) != 1 or order[0].ta not in ac_tables:
                 return False
-        dc_slots = [HuffDecTableC() for _ in range(4)]
-        ac_slots = [HuffDecTableC() for _ in range(4)]
-        for idx, t in dc_tables.items():
-            if 0 <= idx < 4:
-                dc_slots[idx] = make_huff_dec_table(
-                    t.min_code, t.max_code, t.val_ptr, t.vals
-                )
-        for idx, t in ac_tables.items():
-            if 0 <= idx < 4:
-                ac_slots[idx] = make_huff_dec_table(
-                    t.min_code, t.max_code, t.val_ptr, t.vals
-                )
+        dc_slots, ac_slots = _huff_slots(dc_tables), _huff_slots(ac_tables)
         hmax = max(c.h for c in comps)
         vmax = max(c.v for c in comps)
         mcux = -(-width // (8 * hmax))
@@ -696,27 +777,11 @@ def _decode_scan_native(
 ) -> bool:
     """Run the scan through the C++ tier; False -> python fallback."""
     try:
-        from ...native import (
-            HuffDecTableC,
-            jpeg_decode_scan_native,
-            make_huff_dec_table,
-            native_available,
-        )
+        from ...native import jpeg_decode_scan_native, native_available
 
         if not native_available() or len(order) > 3:
             return False
-        dc_slots = [HuffDecTableC() for _ in range(4)]
-        ac_slots = [HuffDecTableC() for _ in range(4)]
-        for idx, t in dc_tables.items():
-            if 0 <= idx < 4:
-                dc_slots[idx] = make_huff_dec_table(
-                    t.min_code, t.max_code, t.val_ptr, t.vals
-                )
-        for idx, t in ac_tables.items():
-            if 0 <= idx < 4:
-                ac_slots[idx] = make_huff_dec_table(
-                    t.min_code, t.max_code, t.val_ptr, t.vals
-                )
+        dc_slots, ac_slots = _huff_slots(dc_tables), _huff_slots(ac_tables)
         for c in order:
             if c.td not in dc_tables or c.ta not in ac_tables:
                 return False
@@ -748,6 +813,47 @@ def _decode_scan_native(
         return True
     except ImportError:  # pragma: no cover
         return False
+
+
+def _huff_slots(tables: dict) -> list:
+    """The four table slots of the native scans, from a scan's tables."""
+    from ...native import HuffDecTableC, make_huff_dec_table
+
+    slots = [HuffDecTableC() for _ in range(4)]
+    for idx, t in tables.items():
+        if 0 <= idx < 4:
+            slots[idx] = make_huff_dec_table(t.min_code, t.max_code, t.val_ptr, t.vals)
+    return slots
+
+
+def _decode_scan_zigzag_native(
+    data, scan_start, width, height, comps, order, dc_tables, ac_tables,
+    mcux, mcuy, restart_interval,
+) -> int:
+    """Run the scan through the C++ tier's zigzag store into the components'
+    int16 scratch, and keep each component's figures; returns the position
+    of the marker after the scan. ``_NaturalRoute`` where the store cannot
+    take the scan."""
+    from ...native import jpeg_decode_scan_zigzag_native, native_available
+
+    if not native_available() or len(order) > 3 or any(c.last is not None for c in order):
+        raise _NaturalRoute
+    if any(c.td not in dc_tables or c.ta not in ac_tables for c in order):
+        raise _NaturalRoute  # the Python scan raises the precise diagnostic
+    hmax = max(c.h for c in comps)
+    vmax = max(c.v for c in comps)
+
+    def grid(c):  # the component's true block columns and rows
+        return -(-(-(-width * c.h // hmax)) // 8), -(-(-(-height * c.v // vmax)) // 8)
+
+    geo = [(c.h, c.v, c.bx) + grid(c) + (c.by,) for c in order]
+    stats, end = jpeg_decode_scan_zigzag_native(
+        data, scan_start, geo, _huff_slots(dc_tables), _huff_slots(ac_tables),
+        [c.td for c in order], [c.ta for c in order], mcux, mcuy, restart_interval,
+        [c.blocks for c in order])
+    for c, (last, peak) in zip(order, stats.tolist()):
+        c.last, c.peak = last, peak
+    return end
 
 
 def _finish_decode(width, height, comps, qtables) -> np.ndarray:

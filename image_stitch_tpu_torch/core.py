@@ -732,6 +732,7 @@ class TorchStreamingConcatenator:
             if image_idx not in dev_cache:
                 dev = sources[image_idx].device_decoder(self.device)
                 self.counters.decode_tiles_opened += dev is not None
+                self.counters.decode_tiles_native_prefix += dev is not None and dev.native_prefix
                 dev_cache[image_idx] = dev
             return dev_cache[image_idx]
 

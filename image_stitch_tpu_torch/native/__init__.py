@@ -182,6 +182,21 @@ def get_native_lib():
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
+    lib.jpeg_decode_scan_zigzag.restype = ctypes.c_int
+    lib.jpeg_decode_scan_zigzag.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(HuffDecTableC), ctypes.POINTER(HuffDecTableC),
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    lib.jpeg_zigzag_prefix.restype = None
+    lib.jpeg_zigzag_prefix.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+    ]
     lib.stitch_adler32.restype = ctypes.c_uint32
     lib.stitch_adler32.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32]
     for fn in (lib.stitch_rgb_to_rgba, lib.stitch_gray_to_rgba):
@@ -493,6 +508,68 @@ def jpeg_decode_scan_native(
 
         raise StitchError(f"JPEG scan decode failed (native rc={rc})")
     return True
+
+
+def jpeg_decode_scan_zigzag_native(
+    data: bytes,
+    scan_start: int,
+    comp_geo: list,  # [(h, v, bx, wb, hb, by)] per scan component
+    dc_tables: list,  # HuffDecTableC slots (4)
+    ac_tables: list,
+    dc_sel: list,
+    ac_sel: list,
+    mcux: int,
+    mcuy: int,
+    restart_interval: int,
+    blocks: list,  # per-comp (by*bx, 64) int16 arrays (C-contig, any content)
+) -> tuple[np.ndarray, int]:
+    """The baseline scan from ``data[scan_start:]`` into int16 zigzag-order
+    blocks (``jpeg_decode_scan_zigzag``). Returns (n, 2) int64, per scan
+    component its highest nonzero zigzag position (-1: none) and its peak
+    |coefficient|, and the position in ``data`` of the first marker after
+    the scan that is not a restart marker (``len(data)`` if none). The
+    native tier must be there."""
+    lib = get_native_lib()
+    n = len(comp_geo)
+    if lib is None or n > 3 or len(blocks) != n:
+        raise ValueError("jpeg_decode_scan_zigzag takes 1 to 3 components, natively")
+    for b, g in zip(blocks, comp_geo):
+        if b.dtype != np.int16 or not b.flags.c_contiguous or b.shape != (g[2] * g[5], 64):
+            raise ValueError("blocks must be C-contiguous (by*bx, 64) int16")
+    cols = [(ctypes.c_int * n)(*[g[i] for g in comp_geo]) for i in range(6)]
+    dsel = (ctypes.c_int * n)(*dc_sel)
+    asel = (ctypes.c_int * n)(*ac_sel)
+    dct = (HuffDecTableC * 4)(*dc_tables)
+    act = (HuffDecTableC * 4)(*ac_tables)
+    stats = np.empty((n, 2), np.int64)
+    next_marker = ctypes.c_int64()
+    ptrs = [b.ctypes.data for b in blocks] + [None] * (3 - n)
+    scan_start = min(scan_start, len(data))  # a truncated stream: no bytes, as data[scan_start:]
+    view = np.frombuffer(data, np.uint8)
+    rc = lib.jpeg_decode_scan_zigzag(
+        view.ctypes.data + scan_start, len(data) - scan_start, n, *cols,
+        dct, act, dsel, asel, mcux, mcuy, restart_interval,
+        ptrs[0], ptrs[1], ptrs[2], stats.ctypes.data, ctypes.addressof(next_marker),
+    )
+    if rc != 0:
+        from ..errors import StitchError
+
+        raise StitchError(f"JPEG scan decode failed (native rc={rc})")
+    return stats, scan_start + next_marker.value
+
+
+def jpeg_zigzag_prefix_native(blocks: np.ndarray, k: int) -> np.ndarray:
+    """The (n, k) int16 array of the first ``k`` (8..64, a multiple of 8)
+    columns of the C-contiguous (n, 64) int16 ``blocks``, copied natively."""
+    lib = get_native_lib()
+    if lib is None:
+        raise ValueError("the native tier is absent")
+    if (blocks.dtype != np.int16 or blocks.ndim != 2 or blocks.shape[1] != 64
+            or not blocks.flags.c_contiguous or k % 8 or not 8 <= k <= 64):
+        raise ValueError("blocks must be C-contiguous (n, 64) int16 and k 8..64 by 8")
+    out = np.empty((blocks.shape[0], k), np.int16)
+    lib.jpeg_zigzag_prefix(blocks.ctypes.data, out.ctypes.data, blocks.shape[0], k)
+    return out
 
 
 def jpeg_decode_progressive_scan_native(

@@ -1891,8 +1891,9 @@ int64_t jpeg_entropy_flush(EntropyState* state, uint8_t* out) {
 //
 // Marker parsing stays in Python (codecs/jpeg/owned_decoder.py); this walks
 // the entropy-coded segment: canonical Huffman decode per T.81 F.2.2,
-// 0xFF00 unstuffing, restart-marker resync, DC prediction, zigzag
-// placement into natural-order int32 blocks.
+// 0xFF00 unstuffing, restart-marker resync, DC prediction, and the store:
+// natural-order int32 blocks (the host tier), or zigzag-order int16 blocks
+// with their bounds (the device tier's transport).
 // ---------------------------------------------------------------------------
 
 typedef struct {
@@ -2031,24 +2032,73 @@ static inline int extend_val(int v, int size) {
     return v >= (1 << (size - 1)) ? v : v - (1 << size) + 1;
 }
 
-// blocks_c: per-component output buffers, each (by*bx, 64) int32 zeroed.
+}  // extern "C"
+
+// The scan's coefficient stores. The loop below is a template over them, so
+// each entry point compiles the loop for its own store alone.
+//
+// NaturalStore: (by*bx, 64) int32 blocks in natural order, zeroed by the
+// caller; each coefficient is de-zigzagged as it is stored. The host
+// tier's decode (jpeg_decode_scan).
+struct NaturalStore {
+    int32_t* base[3];
+    int32_t* blk;
+    inline void begin(int c, int64_t block) { blk = base[c] + block * 64; }
+    inline void dc(int, int v) { blk[0] = v; }
+    inline void ac(int, int k, int v) { blk[kZigzag[k]] = v; }
+    inline void end(int) {}
+};
+
+// ZigzagStore: (by*bx, 64) int16 blocks in zigzag order, the device tier's
+// transport (jpeg_decode_scan_zigzag). The buffers need no zeroing: a
+// block is cleared when the scan reaches it. Per scan component it keeps
+// the highest nonzero zigzag position (-1: none) and the peak |value|; a
+// value past int16 is stored truncated, and the peak tells the caller so.
+struct ZigzagStore {
+    int16_t* base[3];
+    int16_t* blk;
+    int last;  // the block's highest nonzero zigzag position
+    int comp_last[3];
+    int64_t comp_peak[3];
+    inline void begin(int c, int64_t block) {
+        blk = base[c] + block * 64;
+        memset(blk, 0, 64 * sizeof(int16_t));
+        last = -1;
+    }
+    inline void dc(int c, int v) {
+        blk[0] = (int16_t)v;
+        if (v) last = 0;
+        const int64_t a = v < 0 ? -(int64_t)v : (int64_t)v;
+        if (a > comp_peak[c]) comp_peak[c] = a;
+    }
+    // v != 0: an AC value the code carries has a size of 1 to 15 bits.
+    inline void ac(int c, int k, int v) {
+        blk[k] = (int16_t)v;
+        last = k;
+        const int64_t a = v < 0 ? -(int64_t)v : (int64_t)v;
+        if (a > comp_peak[c]) comp_peak[c] = a;
+    }
+    inline void end(int c) {
+        if (last > comp_last[c]) comp_last[c] = last;
+    }
+};
+
 // Returns 0 on success, negative error otherwise.
 // comp_wb/comp_hb: per-component true block-grid bounds. A scan with ONE
 // component is non-interleaved (T.81 A.2 / libjpeg jdinput.c): data unit
 // = one block over the component's own (hb, wb) grid — no h x v MCU
 // grouping, no padding columns — and restart_interval counts BLOCKS.
-int jpeg_decode_scan(const uint8_t* data, int64_t data_len,
-                     int n_comps, const int* comp_h, const int* comp_v,
-                     const int* comp_bx, const int* comp_wb, const int* comp_hb,
-                     const HuffDecTable* dc_tables, const HuffDecTable* ac_tables,
-                     const int* dc_sel, const int* ac_sel,
-                     int mcux, int mcuy, int restart_interval,
-                     int32_t* blocks0, int32_t* blocks1, int32_t* blocks2) {
+template <typename Store>
+static int decode_scan(const uint8_t* data, int64_t data_len,
+                       int n_comps, const int* comp_h, const int* comp_v,
+                       const int* comp_bx, const int* comp_wb, const int* comp_hb,
+                       const HuffDecTable* dc_tables, const HuffDecTable* ac_tables,
+                       const int* dc_sel, const int* ac_sel,
+                       int mcux, int mcuy, int restart_interval, Store& store) {
     if (n_comps == 1) {
         mcux = comp_wb[0];
         mcuy = comp_hb[0];
     }
-    int32_t* blocks_c[3] = {blocks0, blocks1, blocks2};
     int32_t preds[3] = {0, 0, 0};
     BitReader br = {data, data_len, 0, 0, 0};
     int64_t mcu_count = 0;
@@ -2080,8 +2130,7 @@ int jpeg_decode_scan(const uint8_t* data, int64_t data_len,
                     for (int h = 0; h < nh; ++h) {
                         int bx = mx * nh + h;
                         int by = my * nv + v;
-                        int32_t* blk =
-                            blocks_c[c] + ((int64_t)by * comp_bx[c] + bx) * 64;
+                        store.begin(c, (int64_t)by * comp_bx[c] + bx);
                         // 32 buffered bits cover code (<=16) +
                         // magnitude (<=16); refilling only below that
                         // halves refill frequency (bulk refills insert
@@ -2091,7 +2140,7 @@ int jpeg_decode_scan(const uint8_t* data, int64_t data_len,
                         if (s < 0 || s > 16) return -3;
                         int diff = extend_val(br_take(&br, s), s);
                         preds[c] += diff;
-                        blk[0] = preds[c];
+                        store.dc(c, preds[c]);
                         int k = 1;
                         while (k < 64) {
                             if (br.n < 32) br_fill(&br);
@@ -2104,9 +2153,10 @@ int jpeg_decode_scan(const uint8_t* data, int64_t data_len,
                             }
                             k += r;
                             if (k > 63) return -5;
-                            blk[kZigzag[k]] = extend_val(br_take(&br, size), size);
+                            store.ac(c, k, extend_val(br_take(&br, size), size));
                             k += 1;
                         }
+                        store.end(c);
                     }
                 }
             }
@@ -2114,6 +2164,82 @@ int jpeg_decode_scan(const uint8_t* data, int64_t data_len,
         }
     }
     return 0;
+}
+
+extern "C" {
+
+// blocks0..2: per scan component, (by*bx, 64) int32 zeroed.
+int jpeg_decode_scan(const uint8_t* data, int64_t data_len,
+                     int n_comps, const int* comp_h, const int* comp_v,
+                     const int* comp_bx, const int* comp_wb, const int* comp_hb,
+                     const HuffDecTable* dc_tables, const HuffDecTable* ac_tables,
+                     const int* dc_sel, const int* ac_sel,
+                     int mcux, int mcuy, int restart_interval,
+                     int32_t* blocks0, int32_t* blocks1, int32_t* blocks2) {
+    NaturalStore store = {{blocks0, blocks1, blocks2}, nullptr};
+    return decode_scan(data, data_len, n_comps, comp_h, comp_v, comp_bx, comp_wb,
+                       comp_hb, dc_tables, ac_tables, dc_sel, ac_sel, mcux, mcuy,
+                       restart_interval, store);
+}
+
+// The same scan into ZigzagStore. blocks0..2: per scan component,
+// (comp_by*bx, 64) int16, any content: every block of the component comes
+// back written, the MCU padding a non-interleaved scan does not visit
+// zeroed here. stats: per scan component (last, peak) as int64, written on
+// success. next_marker: the offset in data of the first marker that is not
+// a restart marker (data_len if none), where the marker walk goes on. The
+// search starts at the scan's start, not where the reader stopped: a
+// restart resync skips any other marker it meets.
+int jpeg_decode_scan_zigzag(const uint8_t* data, int64_t data_len,
+                            int n_comps, const int* comp_h, const int* comp_v,
+                            const int* comp_bx, const int* comp_wb, const int* comp_hb,
+                            const int* comp_by,
+                            const HuffDecTable* dc_tables, const HuffDecTable* ac_tables,
+                            const int* dc_sel, const int* ac_sel,
+                            int mcux, int mcuy, int restart_interval,
+                            int16_t* blocks0, int16_t* blocks1, int16_t* blocks2,
+                            int64_t* stats, int64_t* next_marker) {
+    ZigzagStore store = {{blocks0, blocks1, blocks2}, nullptr, -1,
+                         {-1, -1, -1}, {0, 0, 0}};
+    const int rc = decode_scan(data, data_len, n_comps, comp_h, comp_v, comp_bx,
+                               comp_wb, comp_hb, dc_tables, ac_tables, dc_sel,
+                               ac_sel, mcux, mcuy, restart_interval, store);
+    if (rc != 0) return rc;
+    *next_marker = data_len;
+    for (int64_t p = 0; p + 1 < data_len; ++p) {
+        const uint8_t* ff = (const uint8_t*)memchr(data + p, 0xFF, (size_t)(data_len - 1 - p));
+        if (ff == nullptr) break;
+        p = ff - data;
+        const uint8_t nxt = data[p + 1];
+        if (nxt != 0x00 && (nxt < 0xD0 || nxt > 0xD7)) {
+            *next_marker = p;
+            break;
+        }
+    }
+    if (n_comps == 1) {
+        const int64_t bx = comp_bx[0], wb = comp_wb[0], hb = comp_hb[0];
+        for (int64_t by = 0; by < comp_by[0]; ++by) {
+            const int64_t from = by < hb ? wb : 0;
+            if (from < bx)
+                memset(blocks0 + (by * bx + from) * 64, 0,
+                       (size_t)(bx - from) * 64 * sizeof(int16_t));
+        }
+    }
+    for (int c = 0; c < n_comps; ++c) {
+        stats[2 * c] = store.comp_last[c];
+        stats[2 * c + 1] = store.comp_peak[c];
+    }
+    return 0;
+}
+
+// dst (n, k) int16: the first k (8..64, a multiple of 8) coefficients of
+// each of the n zigzag-order blocks of src (n, 64).
+void jpeg_zigzag_prefix(const int16_t* src, int16_t* dst, int64_t n, int k) {
+    for (int64_t i = 0; i < n; ++i) {
+        const int16_t* s = src + i * 64;
+        int16_t* d = dst + i * k;
+        for (int j = 0; j < k; j += 8) memcpy(d + j, s + j, 8 * sizeof(int16_t));
+    }
 }
 
 }  // extern "C"

@@ -23,8 +23,10 @@ class EncodeCounters:
     bands decoded whole into a band tensor on the device (one upload and
     two launches for each row of tiles a band crosses, whatever the number
     of tiles), the tiles the tier opened (each one host Huffman decode),
-    and, read from the tier's staging ring at the end of a run, its uploads
-    and the acquires of a slot whose earlier copy was still in flight.
+    those of them whose upload came straight from the native scan's zigzag
+    store (``DeviceJpegDecoder.native_prefix``), and, read from the tier's
+    staging ring at the end of a run, its uploads and the acquires of a slot
+    whose earlier copy was still in flight.
     Bands encoded by the host tier (``backend="numpy"``: the host
     ``StreamingJpegEncoder``, and ``core._encode_png`` on
     ``ops.backend.NumpyBackend``), which launches no kernel. Under a mesh (``parallel.mesh``): the JPEG dispatches made on
@@ -43,6 +45,7 @@ class EncodeCounters:
     decode_tile_bands: int = 0
     decode_bands_on_device: int = 0
     decode_tiles_opened: int = 0
+    decode_tiles_native_prefix: int = 0
     decode_staged_uploads: int = 0
     decode_staging_stalls: int = 0
     host_tier_bands: int = 0

@@ -21,6 +21,11 @@
   encoder takes the JAX package's packed bands as RGBA.
 - The encoder's tensor bands: alone, alternating with host bands, and on
   the wrong device (which raises).
+- The transport straight from the native scan (int16 in zigzag order, with
+  each component's last nonzero position and peak) against the natural
+  route (the int32 scan and a NumPy pass): the same blocks, K, flags and
+  staged bytes on baseline streams of every kind; progressive streams and
+  values past int16 take the natural route; the grid counts its tiles.
 - Streams past the device tier's bounds: DC accumulation to |coef| >= 2^15
   is decoded on the host tier, and |coef * q| past the JAX package's
   M_SAFE (but |coef| < 2^15) on the port's device tier; both give the JAX
@@ -126,6 +131,7 @@ def test_gray_and_quality_extremes():
 def test_progressive_stream():
     data = jpeg(photo(40, 56, seed=3), 85, "420", progressive=True)
     dec = DeviceJpegDecoder(data)
+    assert not dec.native_prefix  # the natural route: int32 scans and the NumPy prefix
     np.testing.assert_array_equal(dec.decode_full(16), owned_rgba(data))
     np.testing.assert_array_equal(dec.decode_full(16), JaxDecoder(data).decode_full(16))
 
@@ -614,3 +620,194 @@ def test_marker_scan_matches_the_jax_package():
         data = bytes(data)
         for start in range(0, len(data), 7):
             assert _next_marker_pos(data, start) == ref(data, start)
+
+
+# --------------------------------------------------------------------------- #
+# The transport straight from the native scan, against the natural route
+# --------------------------------------------------------------------------- #
+
+
+def one_scan_a_component(w: int = 37, h: int = 20) -> bytes:
+    """A baseline 4:2:0 JPEG of w x h px written as three scans of one
+    component each (T.81 A.2's non-interleaved scans): the luma scan walks
+    its 5 x 3 true blocks, not the 6 x 4 of its MCUs, so the MCU padding is
+    never coded."""
+    rng = np.random.default_rng(5)
+    dc_codes = T.build_huffman_codes(T.STD_DC_LUMA_BITS, T.STD_DC_LUMA_VALS)
+    ac_codes = T.build_huffman_codes(T.STD_AC_LUMA_BITS, T.STD_AC_LUMA_VALS)
+    out = bytearray(b"\xff\xd8")
+    out += b"\xff\xdb" + (67).to_bytes(2, "big") + bytes([0]) + bytes([4] * 64)
+    out += b"\xff\xc0" + (17).to_bytes(2, "big") + bytes([8]) + h.to_bytes(2, "big")
+    out += w.to_bytes(2, "big") + bytes([3, 1, 0x22, 0, 2, 0x11, 0, 3, 0x11, 0])
+    for tc_th, bits, vals in ((0x00, T.STD_DC_LUMA_BITS, T.STD_DC_LUMA_VALS),
+                              (0x10, T.STD_AC_LUMA_BITS, T.STD_AC_LUMA_VALS)):
+        payload = bytes([tc_th]) + bytes(bits[1:17]) + bytes(vals)
+        out += b"\xff\xc4" + (2 + len(payload)).to_bytes(2, "big") + payload
+    for cid, scale in ((1, 8), (2, 16), (3, 16)):
+        n = -(-w // scale) * -(-h // scale)
+        blocks = np.zeros((n, 64), np.int64)
+        blocks[:, 0] = rng.integers(-60, 60, n)
+        blocks[:, 1:10] = rng.integers(-6, 7, (n, 9)) * (rng.random((n, 9)) < 0.5)
+        codes, lens, _ = HuffmanEncoder(dc_codes, ac_codes).encode_component_blocks(blocks, 0)
+        packer = BitPacker()
+        scan = packer.pack(np.concatenate(codes), np.concatenate(lens)) + packer.flush()
+        out += b"\xff\xda" + (8).to_bytes(2, "big") + bytes([1, cid, 0x00, 0, 63, 0]) + scan
+    return bytes(out + b"\xff\xd9")
+
+
+def route_stream(name: str) -> bytes:
+    """The streams both routes are held to, by name."""
+    rng = np.random.default_rng(41)
+    if name == "420_camera":
+        return jpeg(photo(48, 72, seed=31), 90, "420")
+    if name == "444":
+        return jpeg(photo(40, 56, seed=32), 85, "444")
+    if name == "gray":
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (33, 29), dtype=np.uint8), mode="L").save(
+            buf, "JPEG", quality=92)
+        return buf.getvalue()
+    if name == "restarts":
+        return jpeg(photo(45, 67, seed=33), 90, "420", restart_marker_blocks=3)
+    if name == "one_scan_a_component":
+        return one_scan_a_component()
+    if name == "smooth":
+        ramp = np.linspace(40, 200, 64, dtype=np.float32)[None, :, None].astype(np.uint8)
+        return jpeg(np.broadcast_to(ramp, (64, 64, 3)).copy(), 85, "420")
+    if name == "noise_q97":
+        return jpeg(rng.integers(0, 256, (32, 40, 3), dtype=np.uint8), 97, "444")
+    if name == "fill_bytes":  # fill bytes before EOI (T.81 B.1.1.2)
+        return jpeg(photo(32, 48, seed=34), 90, "420")[:-2] + b"\xff\xff\xff\xd9"
+    if name == "trailing_rst":  # an RSTn after the last interval, which readers skip
+        return route_stream("restarts")[:-2] + b"\xff\xd7\xff\xd9"
+    if name == "marker_in_interval":  # a stray marker the restart resync skips
+        data = bytearray(route_stream("restarts"))
+        at = data.index(b"\xff\xd0") // 2 + data.index(b"\xff\xda") // 2
+        at += data[at - 1] == 0xFF
+        data[at : at + 2] = b"\xff\xcb"
+        return bytes(data)
+    if name in ("flat", "flat_level"):  # AC all zero; at 128, DC zero too
+        return jpeg(np.full((24, 40, 3), 200 if name == "flat" else 128, np.uint8), 85, "444")
+    assert name == "dc_past_int16"
+    return gray_jpeg([min(i, 17) * 2047 for i in range(24)], np.ones(64, np.int64))
+
+
+ROUTE_STREAMS = ["420_camera", "444", "gray", "restarts", "one_scan_a_component", "smooth",
+                 "noise_q97", "flat", "flat_level", "fill_bytes", "dc_past_int16"]
+
+
+class ZeroedStaging(device_decoder.BandStaging):
+    """A staging ring that zeroes each slot it hands out (so the padding
+    between parts compares) and keeps the bytes of its last upload."""
+
+    def acquire(self, nbytes):
+        slot, buf = super().acquire(nbytes)
+        buf.zero_()
+        return slot, buf
+
+    def upload(self, slot, nbytes):
+        dev = super().upload(slot, nbytes)
+        self.sent = dev.clone()
+        return dev
+
+
+@pytest.mark.parametrize("name", ROUTE_STREAMS)
+def test_native_prefix_equals_the_natural_route(name, monkeypatch):
+    """The transport the native scan writes (int16 zigzag blocks in pooled
+    scratch that holds garbage, its K, narrow flags and safe) against the
+    natural route (the int32 scan and the NumPy prefix): the same held
+    blocks, and the same bytes staged for a band of the whole image. The
+    host tier's coefficients still equal the JAX package's."""
+    from image_stitch_tpu.codecs.jpeg.owned_decoder import decode_coefficients as jax_coefs
+    from image_stitch_tpu_torch import native
+    from image_stitch_tpu_torch.codecs.jpeg.owned_decoder import (
+        decode_coefficients,
+        decode_zigzag_coefficients,
+    )
+
+    data = route_stream(name)
+    monkeypatch.setattr(native.buffer_pool, "get", lambda size: np.full(size, 0x5A, np.uint8))
+    new = DeviceJpegDecoder(data)
+    monkeypatch.setattr(device_decoder, "decode_zigzag_coefficients", lambda data: None)
+    old = DeviceJpegDecoder(data)
+    # A value past int16 sends the stream back to the natural route.
+    assert new.native_prefix == (name != "dc_past_int16") and not old.native_prefix
+    assert (new._k, new._narrow, new.safe) == (old._k, old._narrow, old.safe)
+    assert len(new._zz_blocks) == len(old._zz_blocks) == (1 if name in ("gray", "dc_past_int16")
+                                                          else 3)
+    for a, b in zip(new._zz_blocks, old._zz_blocks):
+        assert a.dtype == b.dtype == np.int16 and a.flags.c_contiguous
+        np.testing.assert_array_equal(a, b)
+    expect_k = {"smooth": lambda k: max(k) < 64, "noise_q97": lambda k: max(k) == 64,
+                "flat": lambda k: k == [8, 8, 8], "flat_level": lambda k: k == [8, 8, 8]}
+    assert expect_k.get(name, lambda k: True)(new._k), new._k
+    assert new.safe == (name != "dc_past_int16")
+    staged = []
+    out = torch.zeros((new.height, new.width, 4), dtype=torch.uint8)
+    for dec in (new, old):
+        ring = ZeroedStaging("cpu")
+        band = device_decoder.stage_tiles_band([(dec, 0, dec.height, 0)], out, ring)
+        staged.append((band.staged_bytes, ring.sent.numpy().tobytes()))
+    assert staged[0] == staged[1]
+    natural = decode_coefficients(data)[0]
+    for a, b in zip(natural, jax_coefs(data)[0]):
+        assert a.dtype == np.int32
+        np.testing.assert_array_equal(a, b)
+    zz = decode_zigzag_coefficients(data)
+    if zz is not None:  # the scan's figures, as a NumPy pass reads them
+        assert list(zip(zz.last, zz.peak)) == [device_decoder._natural_figures(b)
+                                               for b in natural]
+        zz.release()
+    if new.safe:
+        np.testing.assert_array_equal(new.decode_full(16), owned_rgba(data))
+
+
+def test_the_grid_counts_its_native_prefix_tiles():
+    """A grid of JPEG tiles through ``concat_streaming(device="cpu")``: every
+    tile the device tier opens takes the native scan's transport; a
+    progressive tile among them takes the natural route, and the output is
+    the same bytes as the JAX package's."""
+    tiles = [jpeg_tile(s, 40, 24) for s in range(4)]
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    b"".join(image_stitch_tpu_torch.concat_streaming(options(tiles), device="cpu",
+                                                    counters=counters))
+    assert counters.decode_tiles_opened == 4 and counters.decode_tiles_native_prefix == 4
+    tiles[1] = jpeg(photo(24, 40, seed=8), 88, "420", progressive=True)
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    out = b"".join(image_stitch_tpu_torch.concat_streaming(options(tiles), device="cpu",
+                                                          counters=counters))
+    assert counters.decode_tiles_opened == 4 and counters.decode_tiles_native_prefix == 3
+    assert out == jax_package(options(tiles), "numpy")
+
+
+@pytest.mark.parametrize("name", ["420_camera", "restarts", "one_scan_a_component",
+                                  "fill_bytes", "trailing_rst", "marker_in_interval"])
+def test_the_native_scan_finds_the_marker_after_it(name, monkeypatch):
+    """The zigzag scan gives the marker walk the position of the next
+    marker that is not RSTn, where the natural route searches the scan's
+    bytes for it: the same position after every scan, also where a stray
+    marker lies inside a restart interval (the reader's resync skips it, so
+    the search cannot start where the reader stopped)."""
+    from image_stitch_tpu_torch.codecs.jpeg import owned_decoder as O
+
+    real, ends = O._decode_scan_zigzag_native, []
+
+    def checked(data, scan_start, *args):
+        end = real(data, scan_start, *args)
+        ends.append((end, O._next_marker_pos(data, scan_start)))
+        return end
+
+    monkeypatch.setattr(O, "_decode_scan_zigzag_native", checked)
+    data = route_stream(name)
+    if name == "marker_in_interval":  # the walk stops at that marker, on both routes
+        for decode in (O.decode_zigzag_coefficients, O.decode_coefficients):
+            with pytest.raises(image_stitch_tpu_torch.StitchError, match="0xFFCB"):
+                decode(data)
+    else:
+        O.decode_zigzag_coefficients(data).release()
+    assert len(ends) == (3 if name == "one_scan_a_component" else 1)
+    assert all(got == want for got, want in ends), ends
+    if name in ("fill_bytes", "trailing_rst"):
+        assert ends[0][0] == len(data) - (4 if name == "fill_bytes" else 2)
+    if name == "marker_in_interval":
+        assert ends[0][0] == data.index(b"\xff\xcb") < data.rindex(b"\xff\xd0")
