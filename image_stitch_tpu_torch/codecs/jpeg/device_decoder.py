@@ -23,6 +23,12 @@ Upload: the band's zigzag prefix of K coefficients per block, K the image's
 highest nonzero zigzag index + 1 rounded up to a multiple of 8. Photo
 content at q85-q90 keeps K near 16-40 and chroma subsampled.
 
+A grid job asks ``device_tile_bands`` for its ``DeviceTileBands``, the
+tier's one owner there: which tiles it serves, which bands go to the
+device whole, the rows of tiles it decodes into them, a served tile's rows
+of a band assembled on the host, the staging ring and the ``decode_*``
+counters. The job's assembly (``core``) keeps the host half.
+
 Band windowing: h2v2 fancy upsampling reads one row beyond each band edge,
 so a component's window holds one extra row on each side that is not an
 image edge, and the rows it spoils are cropped after upsampling; the
@@ -32,12 +38,14 @@ band equals the whole-image decode.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import os
+from typing import Callable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from ...errors import StitchError
+from ...ops.counters import EncodeCounters
 from ...ops.resolve import resolve_device
 from ...ops.kernels import (
     IDCT_INT32_MAX_DEQ,
@@ -297,3 +305,129 @@ def decode_tiles_band(items, out: torch.Tensor, staging: BandStaging) -> torch.T
         planes = torch.empty(band.plane_bytes, dtype=torch.uint8, device=out.device)
         idct_dequant_batch(band.coefs, band.qtabs, band.jobs, planes, staged=band.ctas)
         return ycc_rgba_batch(planes, band.tiles, out, staged=band.tile_rows)
+
+
+def device_tile_bands(device, output_format: str, bit_depth: int, width: int,
+                      decoders: Sequence, headers: Sequence, tile_y0: Mapping[int, int],
+                      counters: EncodeCounters,
+                      note_rows: Callable[[int, int], None]) -> "DeviceTileBands | None":
+    """The JPEG-tile device decode of one grid job, or None when no tile of
+    it goes to the device: no ``device`` (the host tier), output other than
+    JPEG, a canvas that is not 8-bit, or ``STITCH_TPU_DEVICE_DECODE=0``.
+    The output bytes are the same either way, so this only routes.
+    Arguments as ``DeviceTileBands`` takes them."""
+    if (device is None or output_format != "jpeg" or bit_depth != 8
+            or os.environ.get("STITCH_TPU_DEVICE_DECODE", "1") == "0"):
+        return None
+    return DeviceTileBands(device, width, decoders, headers, tile_y0, counters, note_rows)
+
+
+class DeviceTileBands:
+    """Which tiles of a grid job the device decodes, and their bands.
+
+    ``decoders`` and ``headers``: each image index's decoder and its header;
+    ``tile_y0``: each index's first canvas row; ``width``: the canvas's.
+    An index is served when its header is 8-bit and its decoder's
+    ``device_band_decoder`` gives a decoder on ``device``; it is asked once,
+    on the index's first lookup (duplicate inputs may share one decoder). A
+    served tile is read only by random access here, never also through the
+    host's sequential rows. ``plan`` says whether a band is fully tiled by
+    served tiles; ``band`` decodes such a band into one tensor, one upload
+    and two launches for each row of tiles it crosses; ``rows`` decodes a
+    served tile's rows of a band assembled on the host. ``note_rows(i, n)``
+    hears of every ``n`` rows of index ``i`` served. Counters:
+    ``decode_tiles_opened`` and ``decode_tiles_native_prefix`` per served
+    index, ``decode_tile_bands`` per tile and band, ``decode_bands_on_device``
+    per whole band, and, at ``close``, the staging ring's uploads and
+    stalls."""
+
+    def __init__(self, device, width: int, decoders: Sequence, headers: Sequence,
+                 tile_y0: Mapping[int, int], counters: EncodeCounters,
+                 note_rows: Callable[[int, int], None]):
+        self.device = device
+        self.width = width
+        self._decoders = decoders
+        self._headers = headers
+        self._y0 = tile_y0
+        self._counters = counters
+        self._note_rows = note_rows
+        self._tiles: dict[int, DeviceJpegDecoder | None] = {}
+        self._ring: BandStaging | None = None
+
+    def serves(self, i: int) -> bool:
+        """Whether image index ``i`` is decoded by this tier."""
+        if i not in self._tiles:
+            get = getattr(self._decoders[i], "device_band_decoder", None)
+            tile = get(self.device) if get is not None and self._headers[i].bit_depth == 8 else None
+            self._counters.decode_tiles_opened += tile is not None
+            self._counters.decode_tiles_native_prefix += tile is not None and tile.native_prefix
+            self._tiles[i] = tile
+        return self._tiles[i] is not None
+
+    def _spans_width(self, segs) -> bool:
+        """Whether ``segs``, left to right, tile the canvas's width, each
+        from a served index."""
+        x = 0
+        for i, x0, w, _y0, _y1 in segs:
+            if x0 != x or not self.serves(i):
+                return False
+            x = x0 + w
+        return x == self.width
+
+    def plan(self, band_y0: int, h: int, active):
+        """The band's rows of tiles when canvas rows [band_y0, band_y0 + h)
+        are fully tiled by served tiles, else None. ``active``: the band's
+        segments (image index, x0, width, first row, end row), canvas rows.
+        Each row of tiles, top to bottom, holds its segments left to right,
+        all spanning the same rows and together the whole width."""
+        rows: dict[tuple[int, int], list] = {}
+        for seg in sorted(active, key=lambda a: (a[3], a[1])):
+            rows.setdefault((seg[3], seg[4]), []).append(seg)
+        y = band_y0
+        for (seg_y0, seg_y1), segs in rows.items():
+            if seg_y0 != y or not self._spans_width(segs):
+                return None
+            y = seg_y1
+        return list(rows.values()) if y == band_y0 + h else None
+
+    def band(self, band_y0: int, h: int, tile_rows) -> torch.Tensor:
+        """The (h, width, 4) uint8 band at ``band_y0`` on the device, from
+        ``tile_rows`` as ``plan`` gives them: each row of tiles in one
+        ``decode_tiles_band``, into its rows of the band."""
+        with span("decode.jpeg.band"):
+            out = torch.empty((h, self.width, 4), dtype=torch.uint8, device=self.device)
+            for segs in tile_rows:
+                seg_y0, seg_y1 = segs[0][3], segs[0][4]
+                items = [(self._tiles[i], seg_y0 - self._y0[i], seg_y1 - self._y0[i], x0)
+                         for i, x0, _w, _y0, _y1 in segs]
+                decode_tiles_band(items, out[seg_y0 - band_y0 : seg_y1 - band_y0],
+                                  self._staging())
+        self._counters.decode_bands_on_device += 1
+        for segs in tile_rows:
+            for i, _x0, _w, seg_y0, seg_y1 in segs:
+                self._served(i, seg_y1 - seg_y0)
+        return out
+
+    def rows(self, i: int, seg_y0: int, seg_y1: int) -> np.ndarray:
+        """Canvas rows [seg_y0, seg_y1) of served index ``i``, as a host
+        array."""
+        y0 = seg_y0 - self._y0[i]
+        rows = self._tiles[i].decode_band(y0, y0 + (seg_y1 - seg_y0), staging=self._staging())
+        self._served(i, seg_y1 - seg_y0)
+        return rows
+
+    def close(self) -> None:
+        """Count the staging ring's uploads and stalls."""
+        if self._ring is not None:
+            self._counters.decode_staged_uploads += self._ring.uploads
+            self._counters.decode_staging_stalls += self._ring.stalls
+
+    def _served(self, i: int, n: int) -> None:
+        self._counters.decode_tile_bands += 1
+        self._note_rows(i, n)
+
+    def _staging(self) -> BandStaging:
+        """The job's ring of pinned buffers, made on first use."""
+        if self._ring is None:
+            self._ring = BandStaging(self.device)
+        return self._ring

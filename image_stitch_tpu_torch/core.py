@@ -7,8 +7,9 @@ assembled band goes to a ``TorchStreamingJpegEncoder`` or, for PNG output,
 to ``TorchBackend``'s filter select; positioned 8-bit bands with alpha
 blending composite on the device (``DeviceCompositor``) and go to either
 encoder as tensors. For JPEG output, grid bands tiled by JPEG inputs are
-decoded on the device (``DeviceJpegDecoder``: host Huffman once, the pixel
-math per band there) and handed to the encoder without leaving it.
+decoded on the device (``codecs/jpeg/device_decoder.DeviceTileBands``:
+host Huffman once, the pixel math per band there) and handed to the
+encoder without leaving it.
 
 ``backend="numpy"`` (or "oracle") is the host tier, as in the JAX package:
 no device is resolved and no tensor made; bands composite on the host
@@ -50,6 +51,7 @@ reference :927-1003), including:
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Iterator, Mapping, Sequence
 
@@ -63,6 +65,7 @@ from .codecs.factory import (
     validate_positioned_inputs,
 )
 from .codecs.png.writer import create_idat, create_iend, create_ihdr, serialize_chunk
+from .codecs.jpeg.device_decoder import device_tile_bands
 from .codecs.jpeg.encoder import StreamingJpegEncoder, TorchStreamingJpegEncoder
 from .codecs.registry import get_default_decoder_plugins
 from .errors import StitchError, format_pixels
@@ -193,7 +196,7 @@ class RowSource:
         # on first next()), so a failed group decode falls back to it
         # with per-input error attribution intact.
         self._group_provider = group_provider
-        self._decoder = decoder
+        self.decoder = decoder
         self._span_name = f"decode.{getattr(decoder, 'format', 'input')}"
         self._band_height = band_height
         # The band iterator is created lazily for grouped tiles (the
@@ -213,12 +216,11 @@ class RowSource:
         )
         self._buf: np.ndarray | None = None  # converted rows not yet served
         self.rows_served = 0
-        self._dev_state: tuple | None = None  # lazily probed device tier
         self._progress = progress
         self._context: tuple[int, int] | None = None  # (grid_row, grid_col) 1-based
 
     def _make_iter(self) -> None:
-        decoder, band_height = self._decoder, self._band_height
+        decoder, band_height = self.decoder, self._band_height
         self._iter = decoder.bands(band_height) if hasattr(decoder, "bands") else None
         if self._iter is None:
             self._iter = _bands_from_rows(decoder.scanlines(), band_height)
@@ -334,24 +336,6 @@ class RowSource:
         if n <= 0:
             return
         self.take(n)
-
-    def device_decoder(self, device: torch.device):
-        """The underlying decoder's device band tier on ``device``
-        (random-access ``decode_band``, bit-identical to the host tiers),
-        or None. A source that has one is served ONLY through it by the
-        grid device path: ``take()`` is never mixed in, so the sequential
-        iterator's cursor cannot diverge."""
-        if self._dev_state is None:
-            dev = None
-            get = getattr(self._decoder, "device_band_decoder", None)
-            if get is not None and self.header.bit_depth == 8:
-                dev = get(device)
-                if dev is not None and (dev.width, dev.height) != (
-                    self.header.width, self.header.height
-                ):  # pragma: no cover - decoder validates its own header
-                    dev = None
-            self._dev_state = (dev,)
-        return self._dev_state[0]
 
     def note_rows_served(self, n: int) -> None:
         """Account rows served OUTSIDE take() (the device decode path
@@ -472,49 +456,12 @@ class TorchStreamingConcatenator:
         return traced(job, self._stream(), start)
 
     def _stream(self) -> Iterator[bytes]:
-        opts = self.options
-        inputs = opts.inputs
-        if not isinstance(inputs, (list, tuple)):
-            inputs = list(inputs)
-        inputs = list(inputs)
-        if len(inputs) == 0:
-            raise StitchError("At least one input image is required")
-
-        positioned_mode = has_positioned_images(inputs)
-        if positioned_mode:
-            validate_positioned_inputs(inputs)
-
-        plugins = (
-            list(opts.decoders) if opts.decoders is not None else get_default_decoder_plugins()
-        )
-        decoders = create_decoders(
-            inputs, opts.decoder_options, plugins, pool=self._host_pool()
-        )
-        try:
-            image_headers: list[ImageHeader] = [d.get_header() for d in decoders]
-            headers = [image_header_to_png_header(h) for h in image_headers]
-            target_depth, target_ct = determine_common_format(headers)
-
-            if positioned_mode:
-                inner = self._stream_positioned(
-                    inputs, decoders, image_headers, headers, target_depth
-                )
-            else:
-                inner = self._stream_grid(
-                    decoders, image_headers, headers, target_depth
-                )
-            for chunk in inner:
+        jpeg = self.options.output_format == "jpeg"
+        with self._job() as (bands, out_header):
+            encode = self._encode_jpeg if jpeg else self._encode_png
+            for chunk in encode(bands, out_header):
                 self.stats.record_output(len(chunk))
                 yield chunk
-        finally:
-            if self._pool is not None:
-                self._pool.shutdown(wait=True)
-                self._pool = None
-            for d in decoders:
-                try:
-                    d.close()
-                except Exception:
-                    pass
 
     def stream_bands(self) -> Iterator[np.ndarray]:
         """Yield the assembled (h, W, 4) canvas bands as HOST arrays, no
@@ -523,17 +470,27 @@ class TorchStreamingConcatenator:
         image-concat-browser.ts:287-323). Same decode/assembly/compositing
         pipeline and exactness contracts as stream(); dtype is uint8 or
         uint16 per the common input format."""
+        with self._job() as (bands, _out_header):
+            for band in bands:
+                # A band decoded or blended on the device is a tensor there;
+                # materialize on host.
+                yield _to_host(band)
+
+    @contextlib.contextmanager
+    def _job(self) -> Iterator[tuple[Iterator[np.ndarray | torch.Tensor], PngHeader]]:
+        """One call's set-up and tear-down, for stream() and stream_bands():
+        the inputs checked, the decoders made and their headers read, then
+        the grid or positioned band pipeline, given as (bands, output
+        header). On exit the host pool shuts down and every decoder closes."""
         opts = self.options
-        inputs = opts.inputs
-        if not isinstance(inputs, (list, tuple)):
-            inputs = list(inputs)
-        inputs = list(inputs)
+        inputs = list(opts.inputs)
         if len(inputs) == 0:
             raise StitchError("At least one input image is required")
 
         positioned_mode = has_positioned_images(inputs)
         if positioned_mode:
             validate_positioned_inputs(inputs)
+
         plugins = (
             list(opts.decoders) if opts.decoders is not None else get_default_decoder_plugins()
         )
@@ -545,17 +502,13 @@ class TorchStreamingConcatenator:
             headers = [image_header_to_png_header(h) for h in image_headers]
             target_depth, _target_ct = determine_common_format(headers)
             if positioned_mode:
-                bands, _hdr = self._positioned_band_pipeline(
+                yield self._positioned_band_pipeline(
                     inputs, decoders, image_headers, headers, target_depth
                 )
             else:
-                bands, _hdr = self._grid_band_pipeline(
+                yield self._grid_band_pipeline(
                     decoders, image_headers, headers, target_depth
                 )
-            for band in bands:
-                # The positioned device compositor may hand back a
-                # device-resident tensor; materialize on host.
-                yield _to_host(band)
         finally:
             if self._pool is not None:
                 self._pool.shutdown(wait=True)
@@ -624,24 +577,6 @@ class TorchStreamingConcatenator:
         ]
         return self._grid_canvas_bands(grid_layout, sources, out_header), out_header
 
-    def _stream_grid(
-        self,
-        decoders: Sequence,
-        image_headers: Sequence[ImageHeader],
-        headers: Sequence[PngHeader],
-        target_depth: int,
-    ) -> Iterator[bytes]:
-        bands, out_header = self._grid_band_pipeline(
-            decoders, image_headers, headers, target_depth
-        )
-        if self.options.output_format == "jpeg":
-            yield from self._encode_jpeg(bands, out_header)
-        else:
-            yield PNG_SIGNATURE
-            yield serialize_chunk(create_ihdr(out_header))
-            yield from self._encode_png(bands, out_header)
-            yield serialize_chunk(create_iend())
-
     def _grid_canvas_bands(
         self,
         gl: GridLayout,
@@ -675,7 +610,6 @@ class TorchStreamingConcatenator:
         # Rows of the canvas fully covered by placements skip the background
         # fill (every cell image spans its full cell): in uniform grids that
         # is every row, saving a full canvas-sized memset per band.
-        covered_rows = np.zeros(out_header.height, dtype=bool)
         x_accum = np.zeros(out_header.height, dtype=np.int64)
         for image_idx, y0, x0, _r, _c in placements:
             hh = sources[image_idx].header.height
@@ -704,130 +638,35 @@ class TorchStreamingConcatenator:
         ]
         pool = self._host_pool()
 
-        # ---- device decode fast path ----------------------------------- #
-        # JPEG sources expose a device band tier (host Huffman once, the
-        # pixel math per band on self.device); when the bands go to the
-        # JPEG encoder on that device, a band fully tiled by such sources
-        # is decoded there, all its tiles at once (one upload, two launches),
-        # each written at its x offset into one band tensor, and decoded
-        # pixels never cross the link. Output bytes are
-        # identical by the tier's exactness, so the gate only routes. The
-        # host tier has no device: its tiles decode on the host.
-        import os as _os
+        # JPEG tiles that the device decode serves (``DeviceTileBands``): a
+        # band fully tiled by them is decoded there whole and yielded as a
+        # tensor; in a band assembled here their rows come from it too,
+        # never from take(). None: every tile is read here.
+        tiles = device_tile_bands(
+            self.device, opts.output_format, out_header.bit_depth, width,
+            [src.decoder for src in sources], [src.header for src in sources],
+            {p[0]: p[1] for p in placements}, self.counters,
+            lambda image_idx, n: sources[image_idx].note_rows_served(n))
 
-        dev_gate = (
-            self.device is not None
-            and opts.output_format == "jpeg"
-            and dtype == np.uint8
-            and _os.environ.get("STITCH_TPU_DEVICE_DECODE", "1") != "0"
-        )
-        placement_y0 = {p[0]: p[1] for p in placements}
-        dev_cache: dict[int, object] = {}
-
-        def dev_for(image_idx: int):
-            """Device tier for a source (None = host-served). Deterministic
-            per source: a device-served source never mixes with take()."""
-            if not dev_gate:
-                return None
-            if image_idx not in dev_cache:
-                dev = sources[image_idx].device_decoder(self.device)
-                self.counters.decode_tiles_opened += dev is not None
-                self.counters.decode_tiles_native_prefix += dev is not None and dev.native_prefix
-                dev_cache[image_idx] = dev
-            return dev_cache[image_idx]
-
-        ring = None
-
-        def staging():
-            """The run's ring of pinned staging buffers for the device
-            tier's uploads, made when the first band needs it."""
-            nonlocal ring
-            if ring is None:
-                from .ops.staging import BandStaging
-
-                ring = BandStaging(self.device)
-            return ring
-
-        def rows_served(image_idx: int, n: int) -> None:
-            """Bookkeeping of ``n`` rows of a source served by the device
-            tier; a finished source frees its coefficient arrays."""
-            self.counters.decode_tile_bands += 1
-            src = sources[image_idx]
-            src.note_rows_served(n)
-            if src.rows_served >= src.header.height:
-                dev_cache[image_idx] = None
-                src._dev_state = (None,)
-
-        def dev_rows(image_idx: int, seg_y0: int, seg_y1: int):
-            """The segment's rows from the device tier, as a host array."""
-            ly0 = seg_y0 - placement_y0[image_idx]
-            rows = dev_cache[image_idx].decode_band(ly0, ly0 + (seg_y1 - seg_y0),
-                                                    staging=staging())
-            rows_served(image_idx, seg_y1 - seg_y0)
-            return rows
-
-        def dev_band(band_y0: int, tile_rows, h: int) -> torch.Tensor:
-            """A band fully tiled by device-decodable segments, decoded on
-            the device: for each row of tiles it crosses (``tile_rows``, as
-            ``make_plan`` gives them), one upload and two launches for all
-            the row's tiles, each tile written at its x offset into the
-            row's rows of the band tensor."""
-            from .codecs.jpeg import device_decoder
-
-            with span("decode.jpeg.band"):
-                band_dev = torch.empty((h, width, 4), dtype=torch.uint8, device=self.device)
-                for segs in tile_rows:
-                    seg_y0, seg_y1 = segs[0][3], segs[0][4]
-                    items = [(dev_cache[image_idx], seg_y0 - placement_y0[image_idx],
-                              seg_y1 - placement_y0[image_idx], x0)
-                             for image_idx, x0, _w, _y0, _y1 in segs]
-                    device_decoder.decode_tiles_band(
-                        items, band_dev[seg_y0 - band_y0 : seg_y1 - band_y0], staging())
-            self.counters.decode_bands_on_device += 1
-            for segs in tile_rows:
-                for image_idx, _x0, _w, seg_y0, seg_y1 in segs:
-                    rows_served(image_idx, seg_y1 - seg_y0)
-            return band_dev
-
-        def device_width(segs) -> bool:
-            """Whether ``segs``, left to right, tile the canvas's width, each
-            from a source the device tier serves."""
-            x_cursor = 0
-            for image_idx, x0, img_w, _y0, _y1 in segs:
-                if x0 != x_cursor or dev_for(image_idx) is None:
-                    return False
-                x_cursor = x0 + img_w
-            return x_cursor == width
+        def on_device(image_idx: int) -> bool:
+            return tiles is not None and tiles.serves(image_idx)
 
         def make_plan(band_y0: int, h: int):
-            """("device", tile_rows, None) when the band is fully tiled by
-            device-decodable segments: ``tile_rows`` holds, for each row of
-            tiles the band crosses, top to bottom, its segments left to
-            right, each row's segments spanning the same rows and the whole
-            width. Else ("host", active, futs) with pool futures for the
-            take()-served segments only."""
+            """("device", tile_rows, None) when the device decodes the band
+            whole (``DeviceTileBands.plan``), else ("host", active, futs)
+            with pool futures for the take()-served segments only."""
             active = band_active(band_y0, h)
-            if dev_gate and active:
-                tile_rows: dict[tuple[int, int], list] = {}
-                for seg in sorted(active, key=lambda a: (a[3], a[1])):
-                    tile_rows.setdefault((seg[3], seg[4]), []).append(seg)
-                y_cursor = band_y0
-                for (seg_y0, seg_y1), segs in tile_rows.items():
-                    if seg_y0 != y_cursor or not device_width(segs):
-                        break
-                    y_cursor = seg_y1
-                else:
-                    if y_cursor == band_y0 + h:
-                        return ("device", list(tile_rows.values()), None)
+            tile_rows = tiles.plan(band_y0, h, active) if tiles is not None else None
+            if tile_rows is not None:
+                return ("device", tile_rows, None)
             futs = None
             if pool is not None:
                 # One pull per take()-served input (each input owns one
                 # grid cell, so takes touch disjoint sources); placement
                 # order keeps bytes and first-error identical to serial.
                 futs = [
-                    pool.submit(sources[image_idx].take, seg_y1 - seg_y0)
-                    if dev_for(image_idx) is None
-                    else None
+                    None if on_device(image_idx)
+                    else pool.submit(sources[image_idx].take, seg_y1 - seg_y0)
                     for image_idx, _x0, _w, seg_y0, seg_y1 in active
                 ]
             return ("host", active, futs)
@@ -841,7 +680,7 @@ class TorchStreamingConcatenator:
             if plan[0] == "device":
                 if trim:
                     trim_malloc()
-                band_dev = dev_band(band_y0, plan[1], h)
+                band_dev = tiles.band(band_y0, h, plan[1])
                 if band_idx + 1 < len(band_specs):
                     pending = make_plan(*band_specs[band_idx + 1])
                 yield band_dev
@@ -854,9 +693,9 @@ class TorchStreamingConcatenator:
                 if not covered_rows[band_y0 : band_y0 + h].all():
                     canvas[:] = bg
                 for i, (image_idx, x0, img_w, seg_y0, seg_y1) in enumerate(active):
-                    if dev_for(image_idx) is not None:
-                        rows = dev_rows(image_idx, seg_y0, seg_y1)
-                    elif futs is not None and futs[i] is not None:
+                    if on_device(image_idx):
+                        rows = tiles.rows(image_idx, seg_y0, seg_y1)
+                    elif futs is not None:
                         rows = futs[i].result()
                     else:
                         rows = sources[image_idx].take(seg_y1 - seg_y0)
@@ -868,9 +707,8 @@ class TorchStreamingConcatenator:
                 if band_idx + 1 < len(band_specs):
                     pending = make_plan(*band_specs[band_idx + 1])
             yield canvas
-        if ring is not None:
-            self.counters.decode_staged_uploads += ring.uploads
-            self.counters.decode_staging_stalls += ring.stalls
+        if tiles is not None:
+            tiles.close()
 
     # -------------------------- positioned mode ------------------------ #
 
@@ -935,25 +773,6 @@ class TorchStreamingConcatenator:
             placed, clip_by_idx, sources, out_header
         )
         return bands, out_header
-
-    def _stream_positioned(
-        self,
-        inputs: Sequence,
-        decoders: Sequence,
-        image_headers: Sequence[ImageHeader],
-        headers: Sequence[PngHeader],
-        target_depth: int,
-    ) -> Iterator[bytes]:
-        bands, out_header = self._positioned_band_pipeline(
-            inputs, decoders, image_headers, headers, target_depth
-        )
-        if self.options.output_format == "jpeg":
-            yield from self._encode_jpeg(bands, out_header)
-        else:
-            yield PNG_SIGNATURE
-            yield serialize_chunk(create_ihdr(out_header))
-            yield from self._encode_png(bands, out_header)
-            yield serialize_chunk(create_iend())
 
     def _positioned_canvas_bands(
         self,
@@ -1066,9 +885,12 @@ class TorchStreamingConcatenator:
     def _encode_png(
         self, bands: Iterator[np.ndarray | torch.Tensor], out_header: PngHeader
     ) -> Iterator[bytes]:
-        """Filter-select each band on the device (or on the host tier),
-        feed the streaming deflator, emit IDAT chunks as they materialize
-        (reference: streamCompressedData, image-concat-core.ts:309-383)."""
+        """The PNG file: signature and IHDR, then each band filter-selected
+        on the device (or on the host tier) into the streaming deflator,
+        IDAT chunks as they materialize (reference: streamCompressedData,
+        image-concat-core.ts:309-383), and IEND."""
+        yield PNG_SIGNATURE
+        yield serialize_chunk(create_ihdr(out_header))
         host_tier = self.backend == "numpy" and self.mesh is None
         if self.mesh is not None:
             backend = TorchBackend(self.device, self.counters, mesh=self.mesh)
@@ -1130,6 +952,7 @@ class TorchStreamingConcatenator:
         deflator.finish()
         while chunks:
             yield idat()
+        yield serialize_chunk(create_iend())
 
     def _encode_jpeg(
         self, bands: Iterator[np.ndarray | torch.Tensor], out_header: PngHeader

@@ -28,6 +28,7 @@ import torch
 from ..parallel.mesh import Mesh, ShardedBand, row_slabs
 from .counters import EncodeCounters
 from .resolve import resolve_device
+from .staging import upload
 from .kernels import META_COLS, META_H, META_OFFSET, META_STRIDE, META_Y0, composite_segments
 
 
@@ -70,13 +71,6 @@ class DeviceCompositor:
     def bands_fallback(self) -> int:
         return self.counters.composite_fallback_bands
 
-    def _upload(self, a: np.ndarray, device: torch.device | None = None) -> torch.Tensor:
-        device = self.device if device is None else device
-        host = torch.from_numpy(a)
-        if device.type == "cuda":
-            return host.pin_memory().to(device, non_blocking=True)
-        return host
-
     def composite_band(self, canvas: np.ndarray,
                        segments: list[tuple[np.ndarray, int, int]]) -> torch.Tensor | None:
         """Blend ``segments`` = [(rows (h, w, 4) uint8, band_y0, start_x)]
@@ -113,9 +107,8 @@ class DeviceCompositor:
             offset += rows.size
         srcs = _pack(parts)
         if self.mesh is None:
-            band, ties = composite_segments(
-                self._upload(metas), self._upload(srcs), bg.tolist(), h_canvas, w_canvas
-            )
+            band, ties = composite_segments(upload(metas, self.device), upload(srcs, self.device),
+                                            bg.tolist(), h_canvas, w_canvas)
         else:
             band, ties = self._composite_sharded(metas, srcs, bg.tolist(), h_canvas, w_canvas)
         if int(ties):
@@ -137,8 +130,8 @@ class DeviceCompositor:
                 continue
             with self.mesh.shard(i) as dev:
                 if on_device[dev] is None:
-                    on_device[dev] = self._upload(srcs, dev)
-                band, t = composite_segments(self._upload(_clip_metas(metas, r0, r1), dev),
+                    on_device[dev] = upload(srcs, dev)
+                band, t = composite_segments(upload(_clip_metas(metas, r0, r1), dev),
                                              on_device[dev], bg, r1 - r0, w_canvas)
             slabs.append((r0, band))
             ties.append(t)

@@ -19,10 +19,10 @@ class EncodeCounters:
     Positioned compositing (``ops.composite_device.DeviceCompositor``):
     bands blended on the device, and bands replayed through the host oracle
     on an exact rational tie. JPEG tiles decoded by the device tier
-    (``core._grid_canvas_bands``): decodes counted per tile and band, the
-    bands decoded whole into a band tensor on the device (one upload and
-    two launches for each row of tiles a band crosses, whatever the number
-    of tiles), the tiles the tier opened (each one host Huffman decode),
+    (``codecs.jpeg.device_decoder.DeviceTileBands``): decodes counted per
+    tile and band, the bands decoded whole into a band tensor on the device
+    (one upload and two launches for each row of tiles a band crosses,
+    whatever the number of tiles), the tiles the tier opened (each one host Huffman decode),
     those of them whose upload came straight from the native scan's zigzag
     store (``DeviceJpegDecoder.native_prefix``), and, read from the tier's
     staging ring at the end of a run, its uploads and the acquires of a slot

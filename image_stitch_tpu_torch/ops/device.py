@@ -23,6 +23,7 @@ from ..utils.observability import span
 from .counters import EncodeCounters
 from .kernels import fdct_quant, filter_select, png_bytes
 from .resolve import resolve_device
+from .staging import upload
 
 
 def jpeg_quantize(band: torch.Tensor, luma_q: torch.Tensor, chroma_q: torch.Tensor):
@@ -96,13 +97,8 @@ class TorchBackend:
                 raise ValueError(f"tensor on {a.device}, the backend runs on {self.device}")
             return a.contiguous()
         with span("png.upload") as s:
-            a = np.ascontiguousarray(a)
             s.n = a.nbytes
-            # Upload 16-bit samples as their bytes: torch has few uint16 ops.
-            host = torch.from_numpy(a.view(np.uint8) if a.dtype == np.uint16 else a)
-            if self.device.type == "cuda":
-                host = host.pin_memory().to(self.device, non_blocking=True)
-            return host.view(torch.uint16) if a.dtype == np.uint16 else host
+            return upload(a, self.device)
 
     def _to_host(self, t: torch.Tensor) -> torch.Tensor:
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

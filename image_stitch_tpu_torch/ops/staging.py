@@ -1,14 +1,20 @@
-"""Pinned host staging for uploads: a ring of buffers a band is copied into
-before its queued host-to-device copy.
+"""Pinned host staging for uploads.
 
-Two users: the JPEG-tile device decode (``codecs/jpeg/device_decoder.
-stage_tiles_band``) stages a band's coefficients and tables in one buffer,
-and ``TorchJpegEncoder`` stages each host band as it lies (RGBA, or any
-(H, W, C >= 3)) in one copy.
+``BandStaging`` is a ring of buffers a band is copied into before its
+queued host-to-device copy. Two users: the JPEG-tile device decode
+(``codecs/jpeg/device_decoder.stage_tiles_band``) stages a band's
+coefficients and tables in one buffer, and ``TorchJpegEncoder`` stages each
+host band as it lies (RGBA, or any (H, W, C >= 3)) in one copy.
+
+``upload`` pins a host array and queues its copy, with no ring: the PNG
+filter's bands (``ops/device.py``), the compositor's segments
+(``ops/composite_device.py``) and a mesh's host slabs
+(``parallel/mesh.band_rows``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .resolve import resolve_device
@@ -71,3 +77,16 @@ class BandStaging:
         event.record(torch.cuda.current_stream(self.device))
         self._events[slot] = event
         return dev
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array ``a`` on ``device``: on a card, pinned and its copy queued
+    on the current stream; on the CPU, a tensor over ``a``'s memory (made
+    contiguous). 16-bit samples travel as their bytes, since torch has few
+    uint16 ops, and come back as a uint16 view."""
+    a = np.ascontiguousarray(a)
+    wide = a.dtype == np.uint16
+    host = torch.from_numpy(a.view(np.uint8) if wide else a)
+    if device.type == "cuda":
+        host = host.pin_memory().to(device, non_blocking=True)
+    return host.view(torch.uint16) if wide else host

@@ -35,6 +35,7 @@ import torch
 
 from ..errors import StitchError
 from ..ops.resolve import resolve_device
+from ..ops.staging import upload
 
 # Virtual shards a CPU mesh may have: the JAX test suite's forced host
 # device count (tests/conftest.py), so that both packages refuse the same
@@ -191,20 +192,15 @@ class ShardedBand:
 
 
 def band_rows(band, r0: int, r1: int, device: torch.device) -> torch.Tensor:
-    """Rows [r0, r1) of ``band`` on ``device``: a host array uploaded (on a
-    card through pinned memory, queued on the current stream), a tensor
-    viewed where it lies or copied, a ``ShardedBand`` read from its slabs.
-    16-bit host samples travel as their bytes."""
+    """Rows [r0, r1) of ``band`` on ``device``: a host array uploaded
+    (``ops.staging.upload``), a tensor viewed where it lies or copied, a
+    ``ShardedBand`` read from its slabs."""
     if isinstance(band, ShardedBand):
         return band.rows(r0, r1, device)
     if isinstance(band, torch.Tensor):
         part = band[r0:r1]
         return part if part.device == device else part.to(device, non_blocking=True)
-    a = np.ascontiguousarray(band[r0:r1])
-    host = torch.from_numpy(a.view(np.uint8) if a.dtype == np.uint16 else a)
-    if device.type == "cuda":
-        host = host.pin_memory().to(device, non_blocking=True)
-    return host.view(torch.uint16) if a.dtype == np.uint16 else host
+    return upload(band[r0:r1], device)
 
 
 # --------------------------------------------------------------------------- #

@@ -29,13 +29,13 @@ The spans of a job (``n``: a count of bytes, where there is one):
   (``defilter_units_native``, ``defilter_band_native``).
 - ``decode.jpeg.open``: a JPEG tile opened by the device decode tier (its
   ``DeviceJpegDecoder`` built, ``JpegDecoder.device_band_decoder``, from
-  ``core``'s ``dev_for``), ``n`` the tile's file bytes; under it
+  ``DeviceTileBands.serves``), ``n`` the tile's file bytes; under it
   ``decode.jpeg.entropy`` (``decode_coefficients``, the host Huffman
   decode, ``n`` the same bytes); the zigzag-prefix extraction is its own
   time.
 - ``decode.jpeg.band``: a band of JPEG tiles decoded on the device
-  (``core``'s ``dev_band``, and ``DeviceJpegDecoder.decode_band`` for one
-  tile); under it ``decode.jpeg.stage`` (``stage_tiles_band``: the tables,
+  (``DeviceTileBands.band``, and ``DeviceJpegDecoder.decode_band`` for
+  one tile); under it ``decode.jpeg.stage`` (``stage_tiles_band``: the tables,
   the copies into the staging ring's slot, the queued upload; ``n`` the
   staged bytes) and ``decode.jpeg.launch`` (the two kernels' launches).
 - ``assemble``: a host band of the grid, from its canvas to its yield: the

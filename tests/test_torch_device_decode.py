@@ -394,10 +394,19 @@ def test_mixed_png_jpeg_grid(decodes):
 
 
 def test_duplicate_inputs(decodes):
+    """One stream four times: the four grid cells may share one decoder,
+    but the tier counts a tile opened per image index it serves, and every
+    band is decoded whole on the device."""
     tile = jpeg_tile(7, 64, 64)
     opts = options([tile, tile, tile, tile])
-    assert port(opts) == jax_package(opts, "numpy")
-    assert decodes
+    counters = image_stitch_tpu_torch.EncodeCounters()
+    got = b"".join(image_stitch_tpu_torch.concat_streaming(opts, device="cpu",
+                                                           counters=counters))
+    assert got == jax_package(opts, "numpy")
+    assert decodes and all(into for _y0, _y1, into in decodes)
+    # 128 canvas rows in 32-row bands; each band's two tiles in one decode.
+    assert counters.decode_tiles_opened == 4 and counters.decode_tiles_native_prefix == 4
+    assert (counters.decode_bands_on_device, counters.decode_tile_bands) == (4, 8)
 
 
 def test_off_switch(decodes, monkeypatch):
