@@ -26,7 +26,7 @@ import numpy as np
 
 from .types import ConcatOptions
 
-from .core import TorchStreamingConcatenator
+from .core import TorchStreamingConcatenator, stream_once
 from .ops.counters import EncodeCounters
 
 Options = ConcatOptions | Mapping[str, Any]
@@ -55,7 +55,7 @@ class StreamingConcatenator:
 def concat_streaming(options: Options, *, device="cuda",
                      counters: EncodeCounters | None = None) -> Iterator[bytes]:
     """Generator of encoded output chunks."""
-    return TorchStreamingConcatenator(options, device=device, counters=counters).stream()
+    return stream_once(TorchStreamingConcatenator(options, device=device, counters=counters))
 
 
 def concat_to_buffer(options: Options, *, device="cuda",

@@ -380,6 +380,7 @@ class TorchStreamingConcatenator:
         # run's spans). SURVEY §5: first-class here, absent in the reference.
         self.stats = PipelineStats()
         self._pool = None  # host_threads decode workers (lazy)
+        self._deflate_pool = None  # the PNG deflate's worker at host_threads 1 (lazy)
         self._device_arg = device
         self.mesh = self._resolved_mesh(device)
         if self.mesh is not None:
@@ -427,6 +428,28 @@ class TorchStreamingConcatenator:
         if self._pool is None:
             self._pool = JobPool(max_workers=n, thread_name_prefix="stitch-host")
         return self._pool
+
+    def _deflate_worker(self):
+        """The pool of the PNG writer's deflate: the host pool when there is
+        one, else one compression worker of this concatenator's own, which
+        compresses a sync-flush batch while this thread decodes and filters
+        the next band (as the reference's runtime zlib compresses off its
+        single JS thread). Made at the first PNG job, its thread at the
+        first batch handed to it; it serves every later job, and
+        ``close()`` ends it."""
+        pool = self._host_pool()
+        if pool is not None:
+            return pool
+        if self._deflate_pool is None:
+            self._deflate_pool = JobPool(max_workers=1, thread_name_prefix="stitch-deflate")
+        return self._deflate_pool
+
+    def close(self) -> None:
+        """End the deflate worker's thread, once its batch in flight is done.
+        A later job makes a new one."""
+        if self._deflate_pool is not None:
+            self._deflate_pool.shutdown(wait=True)
+            self._deflate_pool = None
 
     # ------------------------------------------------------------------ #
 
@@ -901,11 +924,12 @@ class TorchStreamingConcatenator:
             level=self.options.png_compression_level,
             on_data=chunks.append,
             strategy=self.options.png_compression_strategy,
-            pool=self._host_pool(),
+            pool=self._deflate_worker(),
             # The IDAT stream is always filter residuals: the native tier's
             # filtered-scanline matcher profile (+20% stage at zlib-6-parity
             # size on this class; io/deflate.py) applies under "default".
             content_hint="filtered_png",
+            counters=self.counters,
         )
 
         def idat() -> bytes:
@@ -987,12 +1011,26 @@ class TorchStreamingConcatenator:
         yield from encoder.finish()
 
 
+def stream_once(concatenator: TorchStreamingConcatenator) -> Iterator[bytes]:
+    """``concatenator.stream()`` for a one-shot call: the concatenator is
+    closed when the stream ends, is closed or fails."""
+    chunks = concatenator.stream()
+
+    def run() -> Iterator[bytes]:
+        try:
+            yield from chunks
+        finally:
+            concatenator.close()
+
+    return run()
+
+
 def concat_core(options, device="cuda") -> bytes:
     """Collect the full stream (reference: concat core fn,
     image-concat-core.ts:1475-1503)."""
-    return b"".join(TorchStreamingConcatenator(options, device).stream())
+    return b"".join(concat_streaming_core(options, device))
 
 
 def concat_streaming_core(options, device="cuda") -> Iterator[bytes]:
     """(reference: concatStreaming, image-concat-core.ts:1505-1511)."""
-    return TorchStreamingConcatenator(options, device).stream()
+    return stream_once(TorchStreamingConcatenator(options, device))

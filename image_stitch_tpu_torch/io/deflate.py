@@ -32,7 +32,15 @@ class StreamingDeflator:
     profile measured +20% stage speed at zlib-6-parity size while costing
     real ratio on text-like content (sweep_deflate_profile.py, round 4).
     Output framing is identical either way: zlib header, Z_SYNC_FLUSH
-    batches, final block + Adler-32."""
+    batches, final block + Adler-32.
+
+    ``pool``, an executor, compresses the owned tier's sync-flush batches
+    off the caller's thread (``NativeDeflator``): one worker keeps one batch
+    in flight and compresses the final batch on the caller's thread; more
+    keep workers + 2 in flight. Every batch is emitted through one
+    ``on_data`` call, in order, so the bytes and their chunking do not
+    depend on the pool. ``counters`` (``EncodeCounters``) counts the owned
+    tier's batches and those compressed on the pool."""
 
     def __init__(
         self,
@@ -42,6 +50,7 @@ class StreamingDeflator:
         strategy: str = "default",
         pool=None,
         content_hint: str = "generic",
+        counters=None,
     ) -> None:
         strategies = {
             "default": zlib.Z_DEFAULT_STRATEGY,
@@ -59,13 +68,11 @@ class StreamingDeflator:
             if native_deflater_available():
                 from ..native import NativeDeflator
 
-                # pool (host_threads): sync-flush batches compress
-                # concurrently, byte-identical output (pigz-style — each
-                # batch's dictionary is the previous batch's raw tail).
                 self._native = NativeDeflator(
                     level, pool=pool,
                     filtered=(strategy == "filtered"
                               or content_hint == "filtered_png"),
+                    counters=counters,
                 )
         if self._native is None:
             self._obj = zlib.compressobj(

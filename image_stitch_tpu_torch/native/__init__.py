@@ -1119,7 +1119,8 @@ class NativeDeflator:
     big-endian Adler-32 trailer (computed via zlib.adler32 on the Python
     side at C speed)."""
 
-    def __init__(self, level: int = 6, pool=None, filtered: bool = False):
+    def __init__(self, level: int = 6, pool=None, filtered: bool = False,
+                 counters=None):
         lib = get_native_lib()
         assert lib is not None
         self._lib = lib
@@ -1136,17 +1137,25 @@ class NativeDeflator:
         self._adler = 1
         self._header_sent = False
         self._finished = False
-        # Parallel tier (host_threads): batches are INDEPENDENT compressions
-        # — batch k's matcher history is the raw 32KB tail of batch k-1,
-        # known at submit time — so a worker pool compresses them
-        # concurrently (pigz-style) and the framed outputs concatenate in
-        # submit order, byte-identical to the serial stream.
+        # Batches are INDEPENDENT compressions — batch k's matcher history
+        # is the raw 32KB tail of batch k-1, known at submit time — so a
+        # pool compresses them off the caller's thread and the framed
+        # outputs concatenate in submit order, byte-identical to the
+        # serial stream. A pool of several workers (host_threads >= 2)
+        # keeps workers + 2 batches in flight (pigz-style). A pool of one
+        # (the concatenator's deflate worker at host_threads 1) keeps one,
+        # overlapping the caller's next band, and the final batch, which
+        # finish() waits on anyway, is compressed on the caller's thread:
+        # a stream of one batch makes no handoff.
         self._pool = pool
         self._jobs: list = []  # ordered (future | bytes) per batch
         self._max_inflight = 0
         if pool is not None:
             lib.owned_deflate_warmup()  # build lazy tables single-threaded
-            self._max_inflight = getattr(pool, "_max_workers", 2) + 2
+            workers = getattr(pool, "_max_workers", 2)
+            self._max_inflight = 1 if workers == 1 else workers + 2
+        # EncodeCounters or None: deflate_batches, deflate_batches_overlapped.
+        self._counters = counters
 
     @staticmethod
     def _compress_batch(lib, level: int, buf: np.ndarray, hist_len: int,
@@ -1162,12 +1171,13 @@ class NativeDeflator:
             # sync/final framing; dynamic blocks are only chosen when smaller.
             cap = data_len + data_len // 32 + 4096
             out = buffer_pool.get(cap)
-            n = lib.owned_deflate_batch(
-                buf.ctypes.data, hist_len, total,
-                1 if is_final else 0, level,
-                out.ctypes.data, cap,
-                scratch.ctypes.data,
-            )
+            with span("png.deflate.batch", data_len):
+                n = lib.owned_deflate_batch(
+                    buf.ctypes.data, hist_len, total,
+                    1 if is_final else 0, level,
+                    out.ctypes.data, cap,
+                    scratch.ctypes.data,
+                )
             if n < 0:
                 from ..errors import StitchError
 
@@ -1225,16 +1235,26 @@ class NativeDeflator:
             self._finished = True
         args = (self._lib, self._level, buf, hl, total, is_final, first,
                 self._adler)
-        if self._pool is None:
+        inline = self._pool is None or (is_final and self._max_inflight == 1)
+        if self._pool is not None and len(self._jobs) >= self._max_inflight:
+            # Backpressure: bound in-flight batches (raw + output bytes)
+            # by waiting on the oldest before queueing more. A batch's
+            # error is raised here, and this batch's buffer goes back.
+            oldest = self._jobs[0]
+            if hasattr(oldest, "result"):
+                try:
+                    with span("png.deflate.wait"):
+                        oldest.result()
+                except BaseException:
+                    buffer_pool.put(buf)
+                    raise
+        if inline:
             self._jobs.append(self._compress_batch(*args))
         else:
-            if len(self._jobs) >= self._max_inflight:
-                # Backpressure: bound in-flight batches (raw + output bytes)
-                # by waiting on the oldest before queueing more.
-                oldest = self._jobs[0]
-                if hasattr(oldest, "result"):
-                    oldest.result()
             self._jobs.append(self._pool.submit(self._compress_batch, *args))
+        if self._counters is not None:
+            self._counters.deflate_batches += 1
+            self._counters.deflate_batches_overlapped += not inline
 
     def _drain(self, block: bool) -> list[bytes]:
         parts = []

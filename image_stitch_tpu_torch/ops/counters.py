@@ -32,7 +32,11 @@ class EncodeCounters:
     ``ops.backend.NumpyBackend``), which launches no kernel. Under a mesh (``parallel.mesh``): the JPEG dispatches made on
     its shards (each one quantize, symbols, layout and pack; a band's tail
     group included), and the slabs that ``TorchBackend`` filtered or
-    quantized on them."""
+    quantized on them. The PNG writer's owned deflate
+    (``native.NativeDeflator``, on either tier): its sync-flush batches,
+    and those of them compressed on a worker (the concatenator's deflate
+    worker at ``host_threads`` 1, its pool above) while the caller went on
+    with the next band."""
 
     bands: int = 0
     repacks: int = 0
@@ -51,3 +55,5 @@ class EncodeCounters:
     host_tier_bands: int = 0
     mesh_dispatches: int = 0
     mesh_slabs: int = 0
+    deflate_batches: int = 0
+    deflate_batches_overlapped: int = 0

@@ -187,9 +187,12 @@ class ConcatOptions:
     mesh: Any = None
     # Host decode parallelism: worker threads pulling per-input band rows
     # (the native inflate/defilter calls release the GIL, so separate tiles
-    # decode on separate cores). 1 = serial (reference parity; the reference
-    # is single-threaded Node, src/image-concat-core.ts). 0 = auto
-    # (STITCH_TPU_HOST_THREADS env, else serial). Output bytes are identical
+    # decode on separate cores). 1 = serial decode (reference parity; the
+    # reference is single-threaded Node, src/image-concat-core.ts); the PNG
+    # deflate then has its own single compression worker, as the
+    # reference's runtime zlib compresses off its JS thread. From 2 the
+    # deflate's batches share the decode pool. 0 = auto
+    # (STITCH_TPU_HOST_THREADS env, else 1). Output bytes are identical
     # at any setting: assembly order is deterministic.
     host_threads: int = 0
 
@@ -261,8 +264,11 @@ class ConcatOptions:
             raise StitchError("host_threads must be >= 0")
 
     def resolved_host_threads(self) -> int:
-        """Effective worker count: explicit option, else the
-        STITCH_TPU_HOST_THREADS env var, else 1 (serial)."""
+        """Effective count of decode workers: explicit option, else the
+        STITCH_TPU_HOST_THREADS env var, else 1 (serial decode). At 1 the
+        PNG deflate compresses on one worker of its own, one batch in
+        flight; from 2 on the decode pool
+        (``TorchStreamingConcatenator._deflate_worker``)."""
         n = int(self.host_threads)
         if n == 0:
             import os

@@ -51,8 +51,13 @@ The spans of a job (``n``: a count of bytes, where there is one):
 - ``png.submit`` (``TorchBackend.png_filter_band_async``), under it
   ``png.upload`` (``n`` bytes onto the device); ``png.device_wait`` (the
   event syncs of ``png_filter_band_wait``); ``png.deflate``
-  (``StreamingDeflator.push`` and ``finish``, ``n`` bytes in); ``png.idat``
-  (an IDAT chunk framed, its CRC included, ``n`` bytes out).
+  (``StreamingDeflator.push`` and ``finish``, ``n`` bytes in: the job's
+  thread's share of the deflate, the batch's copy, its Adler-32 and the
+  waits), under it ``png.deflate.wait`` (blocked on a batch in flight);
+  ``png.deflate.batch`` (``NativeDeflator._compress_batch``, one batch
+  compressed, ``n`` raw bytes: on a deflate worker a span without a
+  parent, the final batch at host threads 1 under ``png.deflate``);
+  ``png.idat`` (an IDAT chunk framed, its CRC included, ``n`` bytes out).
 """
 
 from __future__ import annotations

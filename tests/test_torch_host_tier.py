@@ -17,6 +17,8 @@ card-path run (``device="cpu"``, the kernels' plain versions) codes no band
 on the host tier.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -31,7 +33,12 @@ from image_stitch_tpu_torch.codecs.jpeg import encoder as enc_mod
 from image_stitch_tpu_torch.codecs.jpeg.encoder import StreamingJpegEncoder
 from image_stitch_tpu_torch.codecs.jpeg.tables import quality_scaled_tables
 from image_stitch_tpu_torch.core import TorchStreamingConcatenator
-from image_stitch_tpu_torch.native import jpeg_quant_band_420_native, native_available
+from image_stitch_tpu_torch.io.deflate import StreamingDeflator
+from image_stitch_tpu_torch.native import (
+    NativeDeflator,
+    jpeg_quant_band_420_native,
+    native_available,
+)
 from image_stitch_tpu_torch.ops import backend as B
 from image_stitch_tpu_torch.ops import kernels as K
 from image_stitch_tpu_torch.ops.backend import (
@@ -91,11 +98,14 @@ def host_run(opts, backend="numpy"):
     return out, counters, mode.calls
 
 
+HOST_COUNTS = {"host_tier_bands", "deflate_batches", "deflate_batches_overlapped"}
+
+
 def assert_host_only(counters, calls):
-    """Host-tier bands only: no kernel launch, no device count, no torch
-    call."""
+    """Host-tier counts only (bands, and the PNG deflate's batches): no
+    kernel launch, no device count, no torch call."""
     assert counters.host_tier_bands > 0
-    assert all(v == 0 for k, v in vars(counters).items() if k != "host_tier_bands")
+    assert all(v == 0 for k, v in vars(counters).items() if k not in HOST_COUNTS)
     assert all(getattr(K, k).launches == 0 for k in KERNELS)
     assert calls == []
 
@@ -218,11 +228,27 @@ def test_grid_of_jpeg_tiles_decodes_on_the_host(ri):
     assert counters.decode_tile_bands == counters.decode_bands_on_device == 0
 
 
+def batched(mode, fmt):
+    """A 512 x 1040 canvas in bands of 512 rows, a grid of four 256 x 520
+    tiles or sprites over a 512 x 1040 photo: a band's filtered rows
+    (512 x 2049 bytes) pass the deflate's 1 MB batch, so the PNG stream has
+    three batches, the last band's 16 rows in the final one."""
+    if mode == "grid":
+        tiles = [png_from_array(photo(520, 256, s)) for s in range(4)]
+        return {"inputs": tiles, "layout": {"columns": 2}, "outputFormat": fmt,
+                "bandHeight": 512}
+    inputs = [{"source": png_from_array(photo(1040, 512, 9)), "x": 0, "y": 0}] + sprites()
+    return {"inputs": inputs, "bandHeight": 512, "outputFormat": fmt}
+
+
 @pytest.mark.parametrize("fmt", ["png", "jpeg"])
-@pytest.mark.parametrize("mode", ["grid", "positioned"])
+@pytest.mark.parametrize("mode", ["grid", "positioned", "grid_batches", "positioned_batches"])
 def test_host_threads_give_the_same_bytes(mode, fmt):
-    opts = (grid(fmt=fmt, n=6, columns=3, jpegRestartIntervalRows=1) if mode == "grid"
-            else {"inputs": sprites(), "bandHeight": 32, "outputFormat": fmt})
+    if mode.endswith("_batches"):
+        opts = batched(mode.removesuffix("_batches"), fmt)
+    else:
+        opts = (grid(fmt=fmt, n=6, columns=3, jpegRestartIntervalRows=1) if mode == "grid"
+                else {"inputs": sprites(), "bandHeight": 32, "outputFormat": fmt})
     serial, _, _ = host_run({**opts, "hostThreads": 1})
     threaded, counters, calls = host_run({**opts, "hostThreads": 2})
     assert serial == threaded == jax_numpy({**opts, "hostThreads": 2})
@@ -241,6 +267,212 @@ def test_without_the_native_library(monkeypatch, fmt):
     out = port.concat_to_buffer({**opts, "backend": "numpy"}, counters=counters)
     assert out == jax_numpy(opts)
     assert counters.host_tier_bands > 0 and counters.bands == counters.png_bands == 0
+
+
+# --------------------------------------------------------------------------- #
+# The PNG deflate's worker at host_threads 1
+# --------------------------------------------------------------------------- #
+
+
+COMPRESS_BATCH = NativeDeflator._compress_batch
+
+
+def deflate_threads() -> set:
+    return {t for t in threading.enumerate() if t.name.startswith("stitch-deflate")}
+
+
+def serial_png(mode) -> dict:
+    """The PNG options of a canvas at host_threads 1: ``batched``'s three
+    batches, or (``"one_batch"``) a 96 x 80 grid of 31 KB of rows."""
+    opts = grid(fmt="png") if mode == "one_batch" else batched(mode, "png")
+    return {**opts, "hostThreads": 1}
+
+
+@needs_native
+@pytest.mark.parametrize("backend", ["numpy", "torch"])
+@pytest.mark.parametrize("mode", ["grid", "positioned", "one_batch"])
+def test_png_bytes_with_the_deflate_worker(mode, backend):
+    """On the host tier and on the card path (the kernels' plain versions
+    on the CPU): the first two of three batches compress on the
+    concatenator's deflate worker and the final one on the caller's
+    thread, and the bytes are the JAX package's. A canvas of one batch
+    hands nothing to the worker, so no thread starts."""
+    opts = serial_png(mode)
+    counters = port.EncodeCounters()
+    before = deflate_threads()
+    c = TorchStreamingConcatenator({**opts, "backend": backend}, device="cpu",
+                                   counters=counters)
+    assert b"".join(c.stream()) == jax_numpy(opts)
+    started = deflate_threads() - before
+    c.close()
+    if mode == "one_batch":
+        assert (counters.deflate_batches, counters.deflate_batches_overlapped) == (1, 0)
+        assert started == set()
+    else:
+        assert counters.deflate_batches == 3
+        assert counters.deflate_batches_overlapped == counters.deflate_batches - 1
+        (worker,) = started
+        assert not worker.is_alive()
+
+
+class InFlight:
+    """Stands for ``NativeDeflator._compress_batch`` and counts the batches
+    in flight: a batch is in flight from the moment the deflator takes the
+    function to compress it (as it submits the batch) to the end of its
+    compression. ``hold`` runs before each compression."""
+
+    def __init__(self, hold=lambda args: None):
+        self.hold, self.lock = hold, threading.Lock()
+        self.now = self.most = 0
+        self.threads: list[int] = []
+
+    def __get__(self, obj, cls=None):
+        with self.lock:
+            self.now += 1
+            self.most = max(self.most, self.now)
+
+        def run(*args):
+            try:
+                self.threads.append(threading.get_ident())
+                self.hold(args)
+                return COMPRESS_BATCH(*args)
+            finally:
+                with self.lock:
+                    self.now -= 1
+
+        return run
+
+
+@needs_native
+@pytest.mark.parametrize("mode", ["grid", "positioned"])
+def test_at_most_one_batch_in_flight(monkeypatch, mode):
+    """At host_threads 1 no batch is submitted while another is in flight,
+    the final one included; at host_threads 2 the pool keeps more."""
+    spy = InFlight()
+    monkeypatch.setattr(NativeDeflator, "_compress_batch", spy)
+    opts = serial_png(mode)
+    out, counters, _ = host_run(opts)
+    assert out == jax_numpy(opts)
+    assert spy.most == 1 and len(spy.threads) == counters.deflate_batches == 3
+    assert spy.threads.count(threading.get_ident()) == 1
+    pooled = InFlight()
+    monkeypatch.setattr(NativeDeflator, "_compress_batch", pooled)
+    assert host_run({**opts, "hostThreads": 2})[0] == out
+    assert pooled.most > 1
+
+
+@needs_native
+def test_the_next_band_reaches_the_deflator_while_a_batch_compresses(monkeypatch):
+    """Each batch on the worker waits, before it compresses, until the
+    caller has begun to push the band after the one that made it: the
+    caller decodes and filters that band while the batch is in flight.
+    Compressed on the caller's thread, the wait could never end."""
+    pushes = []
+    cond = threading.Condition()
+    orig_push = StreamingDeflator.push
+
+    def push(self, data):
+        with cond:
+            pushes.append(len(data))
+            cond.notify_all()
+        return orig_push(self, data)
+
+    waits = []
+
+    def hold(args):
+        if args[5]:  # the final batch, on the caller's thread
+            return
+        batch = len(waits) + 1
+        with cond:
+            waits.append(cond.wait_for(lambda: len(pushes) > batch, timeout=30))
+
+    monkeypatch.setattr(StreamingDeflator, "push", push)
+    monkeypatch.setattr(NativeDeflator, "_compress_batch", InFlight(hold))
+    opts = serial_png("grid")
+    assert host_run(opts)[0] == jax_numpy(opts)
+    assert waits == [True, True] and len(pushes) == 3
+
+
+@needs_native
+def test_a_worker_batch_error_reaches_the_caller(monkeypatch):
+    """A batch that fails on the worker raises on the caller's thread, at
+    the next flush, before that flush's batch is submitted; the
+    concatenator's next job gives the right bytes."""
+    opts = serial_png("grid")
+
+    def broken(*args):
+        if threading.current_thread() is not threading.main_thread():
+            raise RuntimeError("planted batch fault")
+        return COMPRESS_BATCH(*args)
+
+    counters = port.EncodeCounters()
+    c = TorchStreamingConcatenator({**opts, "backend": "numpy"}, counters=counters)
+    monkeypatch.setattr(NativeDeflator, "_compress_batch", staticmethod(broken))
+    with pytest.raises(RuntimeError, match="planted batch fault"):
+        b"".join(c.stream())
+    assert (counters.deflate_batches, counters.deflate_batches_overlapped) == (1, 1)
+    monkeypatch.undo()
+    assert b"".join(c.stream()) == jax_numpy(opts)
+    c.close()
+
+
+@needs_native
+def test_one_deflate_thread_serves_every_job():
+    """Twenty PNG jobs on one concatenator: one worker thread, made at the
+    first job's first batch, ended by ``close()``; a one-shot call ends its
+    own."""
+    opts = {**serial_png("grid"), "backend": "numpy"}
+    want = jax_numpy(opts)
+    before = deflate_threads()
+    c = TorchStreamingConcatenator(opts)
+    assert b"".join(c.stream()) == want
+    (worker,) = deflate_threads() - before
+    count = threading.active_count()
+    for _ in range(19):
+        assert b"".join(c.stream()) == want
+    assert threading.active_count() == count and deflate_threads() - before == {worker}
+    c.close()
+    assert not worker.is_alive()
+    assert port.concat_to_buffer(opts) == want
+    assert deflate_threads() - before == set()
+
+
+@needs_native
+def test_concurrent_png_jobs_share_the_buffer_pool():
+    """More job threads than cores, each with its deflate worker, all
+    taking and returning the native module's pooled buffers, with the
+    interpreter switching threads every microsecond: every job gives the
+    JAX package's bytes."""
+    import os
+    import sys
+
+    opts = {**serial_png("grid"), "backend": "numpy"}
+    want = jax_numpy(opts)
+    outs, errors = [], []
+
+    def jobs():
+        try:
+            c = TorchStreamingConcatenator(opts)
+            try:
+                for _ in range(3):
+                    outs.append(b"".join(c.stream()))
+            finally:
+                c.close()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=jobs) for _ in range((os.cpu_count() or 1) + 2)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    assert len(outs) == 3 * len(threads) and all(o == want for o in outs)
 
 
 # --------------------------------------------------------------------------- #

@@ -102,6 +102,9 @@ PARENTS = {
     "jpeg.stuff": "jpeg.wait",
     "png.submit": "job", "png.upload": "png.submit", "png.device_wait": "job",
     "png.deflate": "job", "png.idat": "job",
+    # the final batch compresses on the job's thread; one on the deflate
+    # worker has no parent (test_deflate_batches_on_the_worker)
+    "png.deflate.batch": "png.deflate",
     "decode.jpeg.open": "job", "decode.jpeg.entropy": "decode.jpeg.open",
     "decode.jpeg.band": "job", "decode.jpeg.stage": "decode.jpeg.band",
     "decode.jpeg.launch": "decode.jpeg.band",
@@ -261,6 +264,39 @@ def test_pool_tasks_carry_the_job():
     pulls = [r for r in recs if r.name == "decode.png"]
     away = [r for r in pulls if r.thread != job.thread]
     assert away and all(r.parent is None for r in away)
+
+
+def test_deflate_batches_on_the_worker():
+    """A traced PNG job of three deflate batches at host threads 1 (a
+    512 x 1040 canvas in bands of 512 rows, each band's filtered rows past
+    the 1 MB batch): the first two ``png.deflate.batch`` spans on the
+    deflate worker's thread, without a parent, carrying the job's id; the
+    final one under ``png.deflate`` on the job's thread; one
+    ``png.deflate.wait`` under ``png.deflate`` for each batch in flight when
+    the next was submitted. The batches' ``n`` add up to the filtered rows,
+    and the bytes are the untraced run's."""
+    opts = {"inputs": [smooth_tile(s, w=256, h=520) for s in range(4)],
+            "layout": {"columns": 2}, "outputFormat": "png", "bandHeight": 512,
+            "hostThreads": 1}
+    ob.clear()
+    plain = b"".join(TorchStreamingConcatenator(opts, device="cpu").stream())
+    c = TorchStreamingConcatenator(opts, device="cpu")
+    (out,) = profiled_jobs(c)
+    c.close()
+    assert out == plain
+    recs = ob.spans()
+    by_id = {r.id: r for r in recs}
+    (job,) = [r for r in recs if r.name == "job"]
+    batches = [r for r in recs if r.name == "png.deflate.batch"]
+    assert len(batches) == 3 and {r.job for r in batches} == {c.stats.job}
+    assert sum(r.n for r in batches) == 1040 * (1 + 512 * 4)
+    away = [r for r in batches if r.thread != job.thread]
+    assert len(away) == 2 and all(r.parent is None for r in away)
+    (last,) = [r for r in batches if r.thread == job.thread]
+    assert by_id[last.parent].name == "png.deflate" and last.n == 16 * (1 + 512 * 4)
+    waits = [r for r in recs if r.name == "png.deflate.wait"]
+    assert len(waits) == 2 and all(by_id[r.parent].name == "png.deflate" for r in waits)
+    assert (c.counters.deflate_batches, c.counters.deflate_batches_overlapped) == (3, 2)
 
 
 def test_the_cap_counts_dropped(monkeypatch):
